@@ -1,5 +1,4 @@
-"""Forward+backward headline benchmark (BASELINE.md names BOTH metrics:
-"rays/s/chip (forward & fwd+bwd)").  Times `jax.value_and_grad` of the
+"""Forward+backward benchmark on one GPU.  Times `jax.value_and_grad` of the
 differentiable path-trace loss on the bunny+teapot TLAS scene, gradients
 w.r.t. the full parameter set (material table, texels, light color, triangle
 vertices — diff/grad.py PARAM_KEYS).
@@ -9,15 +8,15 @@ bench renders in the reference-parity NEAREST-tap mode, whose texel fetch
 goes through the PACKED u32 atlas — an integer path that carries no
 tangents, so the `texels` leaf receives zero gradient here.  Texture
 learning uses bilinear mode (BENCH_BILINEAR=1, scene compile
-`bilinear=True`), where texel gradients flow and are FD-validated; since
-r4 bilinear diff runs with full compaction chunking too — the texel tap is
-deferred out of the chunk scans (pathtracer._bounce_step defer_tex), so
-the scan transposes never stack atlas cotangents.
+`bilinear=True`), where texel gradients flow and are FD-validated; bilinear
+diff runs with full compaction chunking too — the texel tap is deferred out
+of the chunk scans (pathtracer._bounce_step defer_tex), so the scan
+transposes never stack atlas cotangents.
 
-Prints ONE JSON line like bench.py.  Rays counted = path segments of the
-forward pass (the backward pass re-traverses the same segments via
-rematerialization; the metric is forward-equivalent rays through fwd+bwd
-per second, matching the BASELINE phrasing).
+Prints the card's name and power limit, then ONE JSON line like bench.py.
+Rays counted = path segments of the forward pass (the backward pass
+re-traverses the same segments via rematerialization; the metric is
+forward-equivalent rays through fwd+bwd per second).  Fails without a GPU.
 """
 
 import json
@@ -28,14 +27,9 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-# BASELINE.md names the fwd+bwd metric but sets no number for it, so
-# vs_baseline reports against the FORWARD north star (100M rays/s/chip) —
-# the only driver-set denominator that exists.  detail.vs_forward gives the
-# fwd+bwd/forward ratio against the committed forward headline.
-BASELINE_RAYS_PER_S = 100e6
 WIDTH, HEIGHT = 1280, 720
 STEPS = 16
-DEPTH_LIMIT = 5  # r3: the forward headline's own depth (VERDICT r2 ask #3)
+DEPTH_LIMIT = 5  # the forward benchmark's own depth
 
 
 def main():
@@ -47,9 +41,11 @@ def main():
     from cpu_ray_tracer_tpu.render import pathtracer
     from cpu_ray_tracer_tpu.scene.build import compile_scene
     from cpu_ray_tracer_tpu.utils.metrics import runtime_flags
+    from cpu_ray_tracer_tpu.utils.runtime import card_description, enable_compile_cache, require_gpu
 
-    if os.path.isdir(os.path.join(REPO, ".jax_cache")):
-        jax.config.update("jax_compilation_cache_dir", os.path.join(REPO, ".jax_cache"))
+    device = require_gpu()
+    print(f"card: {card_description()}")
+    enable_compile_cache()
 
     width = int(os.environ.get("BENCH_WIDTH", WIDTH))
     height = int(os.environ.get("BENCH_HEIGHT", HEIGHT))
@@ -58,7 +54,7 @@ def main():
     out_path = os.environ.get("BENCH_OUT", "")
     # BENCH_BILINEAR=1: texture-LEARNING mode — bilinear taps through the
     # rank-1 custom-VJP texel gather (vecmath.gather_rows3), so the
-    # `texels` leaf receives real gradients (VERDICT r3 ask #3); optionally
+    # `texels` leaf receives real gradients; optionally
     # BENCH_FD=1 validates the largest texel gradient against a central
     # finite difference at full bench scale.
     bilinear = os.environ.get("BENCH_BILINEAR", "0") == "1"
@@ -138,25 +134,12 @@ def main():
                 "finite_difference": fd,
                 "rel_err": abs(an - fd) / max(abs(fd), 1e-12),
             }
-    # fwd+bwd relative to the committed FORWARD headline (BENCH json), so the
-    # ratio reads "backward costs X of forward" instead of inventing a target
-    fwd = None
-    for name in sorted(os.listdir(REPO), reverse=True):
-        if name.startswith("BENCH_r") and name.endswith(".json"):
-            try:
-                with open(os.path.join(REPO, name)) as f:
-                    fwd = json.load(f).get("parsed", {}).get("value")
-            except Exception:
-                fwd = None
-            if fwd:
-                break
     result = {
-        "metric": "path_trace_fwdbwd_rays_per_s_per_chip",
+        "metric": "path_trace_fwdbwd_rays_per_s",
         "value": rays_per_s,
         "unit": "rays/s",
-        "vs_baseline": rays_per_s / BASELINE_RAYS_PER_S,
+        "device": device,
         "detail": {
-            "vs_forward": (rays_per_s / fwd) if fwd else None,
             "resolution": [width, height],
             "steps": steps,
             "depth_limit": depth_limit,
@@ -167,7 +150,6 @@ def main():
             "bilinear": bilinear,
             "texel_grads": texel_note,
             "texel_fd_check": fd_detail,
-            "device": str(jax.devices()[0]),
             **runtime_flags(),
         },
     }

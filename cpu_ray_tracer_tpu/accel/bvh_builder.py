@@ -12,7 +12,7 @@ is comparable:
   parent cost (CalculateNodeCost);
 * in-place partition of the triangle index array by centroid < splitPos.
 
-Additions over the reference, both TPU-motivated:
+Additions over the reference, both for batched traversal:
 
 * `force_split_cap`: in fast mode, a no-gain SAH stop with more than
   `force_split_cap` triangles falls back to a median split, bounding
@@ -75,9 +75,8 @@ def build_bvh(
     """Build a BVH over triangles `tri_v` [N, 3, 3].
 
     `leaf_target`: stop subdividing once a node holds <= this many triangles
-    (reference behavior = 2).  The Pallas packet kernel prefers fatter
-    leaves (8: one packed triangle row) — fewer scalar node steps, and the
-    extra triangle tests are free vector work across the ray tile.
+    (reference behavior = 2).  Fatter leaves trade node steps for
+    triangle tests.
 
     Returns (host_bvh, tri_indices [N] int32, BuildStats).
 

@@ -1,10 +1,14 @@
-"""ctypes bindings to the native (C++) host-side builders.
+"""ctypes bindings to the native (C++) host library.
 
 The reference does its whole scene-compile path (SAH BVH build, grid
 insertion) in C++; this module is our native equivalent.  The library is
 built from native/crt_native.cpp (`make -C native`) and loaded lazily; when
 absent or disabled (CRT_NATIVE=0) the numpy builders are used — both paths
 share semantics and are cross-checked by tests.
+
+The same library holds the host build of the per-ray BVH walk that the CUDA
+kernel runs (native/bvh_walk.h, `walk_host`), which the CPU tests compare
+with ops/traverse_bvh.py.
 """
 
 from __future__ import annotations
@@ -67,6 +71,13 @@ def get_lib():
     lib.crt_thread_links.argtypes = [
         _i32p, _i32p, _i32p, _i32p, ctypes.c_int, _i32p, ctypes.c_int, _i32p, _i32p,
     ]
+    lib.crt_traverse.restype = None
+    lib.crt_traverse.argtypes = (
+        [_f32p, _f32p, _i32p, _i32p, _i32p, _i32p, _i32p, ctypes.c_int32, ctypes.c_int32]
+        + [_f32p, _f32p, _f32p, _i32p, _i32p]
+        + [_f32p, _f32p, _f32p, ctypes.c_int64, ctypes.c_int32]
+        + [_f32p, _f32p, _i32p, _i32p, _i32p, _i32p, _i32p]
+    )
     lib.crt_grid_insert.restype = ctypes.c_longlong
     lib.crt_grid_insert.argtypes = [
         _f32p, ctypes.c_int, _f32p, _f32p, _i32p,
@@ -224,3 +235,45 @@ def thread_links_native(left, right, tri_count, axis, roots=None):
         m, roots_arr, len(roots), hit, miss,
     )
     return hit, miss
+
+
+def walk_host(bvh, tris, o, d, t0, any_hit: bool = False) -> dict:
+    """Run native/bvh_walk.h's per-ray walk on the host over numpy copies
+    of a BVHArrays / TrianglePool and rays o, d [R, 3], t0 [R].  Returns the
+    traversal contract of ops/traverse_bvh.traverse as numpy arrays.
+    Raises RuntimeError when the library cannot be built."""
+    lib = get_lib()
+    if lib is None:
+        raise RuntimeError("native library unavailable: `make -C native` failed")
+
+    def f32(x):
+        return np.ascontiguousarray(np.asarray(x), np.float32)
+
+    def i32(x):
+        return np.ascontiguousarray(np.asarray(x), np.int32)
+
+    o, d, t0 = f32(o), f32(d), f32(t0)
+    r = t0.shape[0]
+    if o.shape != (r, 3) or d.shape != (r, 3):
+        raise ValueError(f"rays must be [R, 3] beside t0 [R]; got {o.shape}, {d.shape}, {t0.shape}")
+    m = int(np.asarray(bvh.tri_count).shape[0])
+    tables = (
+        f32(bvh.node_min), f32(bvh.node_max), i32(bvh.left_first), i32(bvh.tri_count),
+        i32(bvh.hit_link), i32(bvh.miss_link), i32(bvh.tri_indices),
+    )
+    pool = (f32(tris.v0), f32(tris.e1), f32(tris.e2), i32(tris.obj_id), i32(tris.mat_id))
+    out = dict(
+        t=np.empty(r, np.float32),
+        bary=np.empty((r, 2), np.float32),
+        tri_idx=np.empty(r, np.int32),
+        obj_id=np.empty(r, np.int32),
+        mat_id=np.empty(r, np.int32),
+        traversed=np.empty(r, np.int32),
+        tested=np.empty(r, np.int32),
+    )
+    lib.crt_traverse(
+        *tables, m, int(bvh.root), *pool, o, d, t0, r, int(any_hit),
+        out["t"], out["bary"], out["tri_idx"], out["obj_id"], out["mat_id"],
+        out["traversed"], out["tested"],
+    )
+    return out

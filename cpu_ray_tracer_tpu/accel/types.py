@@ -3,7 +3,7 @@
 The reference's pointer-based node graphs (infra/bvh.h, grid.h, kdtree.h)
 become index-based flat arrays.  Traversal state per ray is a single int32
 cursor (plus a tiny stack for the KD tree), which is what makes lockstep
-vector traversal possible on the TPU's (8, 128) lanes.
+batched traversal possible.
 
 Key design choice — *threaded* (skip-link) BVHs: every node stores, for each
 of the 8 ray-direction octants, the index of the next node to visit when its
@@ -21,7 +21,8 @@ import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from cpu_ray_tracer_tpu.utils import struct
 
 
 @struct.dataclass
@@ -41,9 +42,8 @@ class TrianglePool:
     obj_id: jnp.ndarray  # [N] int32 object id (>= 2 for mesh instances)
     mat_id: jnp.ndarray  # [N] int32 into the scene MaterialTable
     # fused shading record [N, 16]: n0(3) n1(3) n2(3) uv0(2) uv1(2) uv2(2)
-    # obj(1) — ONE gather serves the whole hit-interpolation path (XLA TPU
-    # gathers are expensive; six separate [tid] gathers were the shading
-    # bottleneck)
+    # obj(1) — ONE gather serves the whole hit-interpolation path in place
+    # of six separate [tid] gathers
     shade: jnp.ndarray = None
 
     @property

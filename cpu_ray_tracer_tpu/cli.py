@@ -23,6 +23,9 @@ def main(argv=None):
     from cpu_ray_tracer_tpu.core import film as film_mod
     from cpu_ray_tracer_tpu.utils import checkpoint as ckpt_mod
     from cpu_ray_tracer_tpu.utils import metrics as metrics_mod
+    from cpu_ray_tracer_tpu.utils.runtime import enable_compile_cache
+
+    enable_compile_cache()
 
     scene, info = cfg.build_scene()
     camera = cfg.build_camera()

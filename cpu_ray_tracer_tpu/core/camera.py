@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from cpu_ray_tracer_tpu.utils import struct
 
 from cpu_ray_tracer_tpu.core import vecmath
 from cpu_ray_tracer_tpu.core.rays import Rays, make_rays

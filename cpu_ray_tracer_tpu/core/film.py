@@ -10,7 +10,9 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from cpu_ray_tracer_tpu.io import image
+from cpu_ray_tracer_tpu.utils import struct
 
 
 @struct.dataclass
@@ -52,6 +54,4 @@ def energy(img: jnp.ndarray) -> jnp.ndarray:
 
 
 def write_png(path: str, img_u8: np.ndarray) -> None:
-    from PIL import Image
-
-    Image.fromarray(np.asarray(img_u8), "RGB").save(path)
+    image.write_png(path, np.asarray(img_u8))

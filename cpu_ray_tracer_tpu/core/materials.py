@@ -18,7 +18,8 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from cpu_ray_tracer_tpu.utils import struct
 
 from cpu_ray_tracer_tpu.core import textures as tex_mod
 from cpu_ray_tracer_tpu.core.textures import TextureAtlas

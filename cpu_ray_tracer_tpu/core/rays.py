@@ -1,14 +1,15 @@
 """SoA ray batches and hit records.
 
 The reference's per-ray struct (template/ray.h:6-41) becomes a pytree of
-flat arrays over a ray batch: the batch dimension is the TPU's unit of
+flat arrays over a ray batch: the batch dimension is the device's unit of
 parallelism (what OpenMP scanlines / 16x16 tile jobs were on the CPU).
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+
+from cpu_ray_tracer_tpu.utils import struct
 
 from cpu_ray_tracer_tpu import constants
 

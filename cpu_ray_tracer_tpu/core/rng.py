@@ -2,7 +2,7 @@
 
 The reference uses a mutable xorshift32 stream per tile with WangHash seeding
 (template/tmplmath.cpp:3-34).  A mutable sequential stream cannot be
-vectorized across a megabatch, so the TPU-native design makes the RNG
+vectorized across a megabatch, so the batched design makes the RNG
 *stateless and counter-based*: every draw is a pure function of
 (pixel id, sample id, bounce, draw index).  Two interchangeable backends:
 

@@ -3,7 +3,7 @@
 All of a scene's textures (material diffuse maps, the floor texture, the
 skydome) are packed into ONE flat float32 texel buffer `[K, 3]` with a small
 per-texture table of (offset, width, height).  Sampling is a gather — the
-TPU-native replacement for the reference's per-texture pointer fetch
+batched replacement for the reference's per-texture pointer fetch
 (template/texture.h:61-96).
 
 Two tap modes:
@@ -18,17 +18,17 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from cpu_ray_tracer_tpu.utils import struct
 
 from cpu_ray_tracer_tpu.core import vecmath as vm
 
 
 # Texel gathers in the differentiable pipeline go through
 # vecmath.gather_rows3: a rank-1 flat backward (the autodiff transpose of
-# a row gather is a multi-lane scatter-add at random indices — the
-# measured 78 ms TPU scatter cliff), with a FLAT [K*3] cotangent so
-# differentiated scan bodies stack unpadded instances instead of
-# 42.7x-padded [K, 3] ones (the r3 19.8 GB bilinear-diff chunking OOM).
+# a row gather is a multi-lane scatter-add at random indices), with a FLAT
+# [K*3] cotangent so differentiated scan bodies stack unpadded instances
+# instead of padded [K, 3] ones.
 
 
 @struct.dataclass
@@ -39,8 +39,7 @@ class TextureAtlas:
     height: jnp.ndarray  # [T] int32
     # [K] uint32 0x00RRGGBB — the reference's own pixel format
     # (texture.h:35).  Nearest-neighbor taps gather ONE scalar per ray and
-    # bit-unpack on the VPU: 3x less gather traffic than the [K, 3] rows
-    # (the skydome gather dominated shading cost on TPU).
+    # bit-unpack it: 3x less gather traffic than the [K, 3] rows.
     packed: jnp.ndarray = None
 
     @property

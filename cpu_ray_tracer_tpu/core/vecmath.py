@@ -103,8 +103,8 @@ def transform_position(p: jnp.ndarray, m: jnp.ndarray) -> jnp.ndarray:
     `m` may be [..., 4, 4] or [..., 3, 4]; broadcasting over batch dims.
     """
     # Explicit expansion instead of einsum: keeps the 3-wide contraction in
-    # full fp32 on the VPU (TPU matmul would demote fp32 to bf16 by default,
-    # and a 3x3 contraction can't use the MXU efficiently anyway).
+    # full fp32 elementwise math (a default-precision matmul may round f32
+    # operands, and a 3x3 contraction gains nothing from a matrix unit).
     out = transform_vector(p, m)
     return out + m[..., :3, 3]
 
@@ -176,9 +176,8 @@ def mat_inverted(m: np.ndarray) -> np.ndarray:
 # --- flat-cotangent row gather -------------------------------------------
 # For [N, 3] tables gathered inside DIFFERENTIATED lax.scan bodies (chunked
 # bounces): a scan transpose stacks one cotangent instance of every
-# closed-over operand per iteration, and a [N, 3] f32 cotangent pads 42.7x
-# under TPU (8, 128) tiling — measured 342 MB per instance at N=10952 tris
-# x (deep=4, chunks=16) iterations, the r4 bilinear fwd+bwd OOM.  Gathering
+# closed-over operand per iteration, and a tiled layout pads the small
+# trailing dim of a [N, 3] f32 cotangent.  Gathering
 # through a FLAT [N*3] view keeps every stacked cotangent unpadded; the
 # single reshape back to [N, 3] (and its padded instance) happens once,
 # outside all scans, where the flat views are CSE'd.
@@ -190,9 +189,8 @@ import jax as _jax
 def _gather3_flat(flat: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
     """flat.reshape(-1, 3)[idx] ([N*3] f32, [...] i32 -> [..., 3]).
 
-    The forward is a plain ROW gather (one index per row — a 3-index flat
-    gather here measured 1.9x slower end-to-end on the nearest-mode
-    fwd+bwd bench); only the COTANGENT is flat."""
+    The forward is a plain ROW gather (one index per row); only the
+    COTANGENT is flat."""
     return flat.reshape(-1, 3)[idx]
 
 
@@ -202,8 +200,7 @@ def _gather3_flat_fwd(flat, idx):
 
 def _gather3_flat_bwd(res, g):
     idx, n3 = res
-    # rank-1 scatter-add (multi-lane scatters hit the measured TPU cliff:
-    # 78 ms vs 4 ms at R=921600 — docs/ROOFLINE.md)
+    # rank-1 scatter-add in place of a multi-lane row scatter
     fi = idx.reshape(-1)[:, None] * 3 + jnp.arange(3, dtype=idx.dtype)[None, :]
     gt = jnp.zeros((n3,), g.dtype).at[fi.reshape(-1)].add(g.reshape(-1))
     return gt, None

@@ -37,9 +37,11 @@ import xml.etree.ElementTree as ET
 import numpy as np
 
 _REPO_ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "assets")
-# Upstream asset tree (meshes/textures shipped by the reference repo).  Used
-# as a read-only search root so scene files can be shared between both repos.
-_UPSTREAM_ASSETS = os.environ.get("CRT_UPSTREAM_ASSETS", "/root/reference/assets")
+# Optional upstream asset tree (meshes/textures shipped by the reference
+# repo), searched read-only after this repo's own assets/ so that scene files
+# can be shared between both repos.  Unset by default: every scene under
+# assets/scenes/ resolves from this repo alone.
+UPSTREAM_ASSETS = os.environ.get("CRT_UPSTREAM_ASSETS", "")
 
 # Files referenced by the upstream scene XMLs but absent from the checked-out
 # repo (SURVEY.md §2 "Missing assets").  We ship substitutes.
@@ -141,8 +143,8 @@ def resolve_asset(spec_path: str, xml_dir: str) -> str:
     if sub_rel.startswith("assets/"):
         sub_rel = sub_rel[len("assets/") :]
     candidates.append(os.path.join(_REPO_ASSETS, sub_rel))
-    if os.path.isdir(_UPSTREAM_ASSETS):
-        candidates.append(os.path.join(_UPSTREAM_ASSETS, sub_rel))
+    if UPSTREAM_ASSETS and os.path.isdir(UPSTREAM_ASSETS):
+        candidates.append(os.path.join(UPSTREAM_ASSETS, sub_rel))
     base, _ = os.path.splitext(sub_rel)
     for ext in _SUBSTITUTE_EXTS:
         candidates.append(os.path.join(_REPO_ASSETS, base + ext))

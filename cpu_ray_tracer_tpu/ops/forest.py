@@ -6,7 +6,7 @@ agglomerative two-node-TLAS whose leaves call the per-object BLAS's
 Intersect.  With at most a handful of instances per scene (inside_scene: 9)
 the TLAS's only job is to skip BLASes whose world AABB the ray misses —
 which each BLAS traversal already does in its own entry slab test.  The
-TPU-native equivalent is therefore a STATIC unrolled chain over the
+batched equivalent is therefore a STATIC unrolled chain over the
 per-instance structures, threading the running `t` through so later
 instances start with the earlier instances' closest hit (the same
 front-to-back pruning the reference gets from ordered TLAS descent, minus

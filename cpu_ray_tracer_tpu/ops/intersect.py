@@ -1,6 +1,6 @@
-"""Batched geometric intersection primitives (pure jnp, VPU-friendly).
+"""Batched geometric intersection primitives (pure jnp, elementwise).
 
-These are the vector-unit analogs of the reference's scalar/SSE tests:
+These are the batched analogs of the reference's scalar/SSE tests:
 Möller–Trumbore (infra/bvh.cpp:203-222), the slab AABB test
 (infra/bvh.cpp:181-190), and the closed-form quad/plane intersectors
 (template/primitives.h:100-179, :321-375).  Everything is branchless — masks

@@ -8,14 +8,16 @@ to `max_leaf`), and advances the cursor through the octant-ordered hit/miss
 skip links.  Rays that finish park at cursor -1; the loop ends when all rays
 are parked.
 
-Why stackless: per-ray stacks + data-dependent trip counts fight the TPU's
-lockstep (8, 128) lanes; a single cursor keeps all per-step work as flat
-gathers + vector math, which XLA maps onto the VPU directly.  The 8 link
+Why stackless: per-ray stacks + data-dependent trip counts do not batch; a
+single cursor keeps all per-step work as flat gathers + vector math, which
+XLA compiles for any backend.  The 8 link
 tables keep near-first ordered descent so early-out by distance still works
 (each slab test uses the ray's current best t).
 
-A Pallas kernel with the same contract lives in ops/pallas/; this version is
-the reference implementation and the fallback for CPU/interpret modes.
+The CUDA walk (native/bvh_walk.h, ops/bvh_kernel.py) answers the same
+contract one ray per thread on the GPU; this version is the reference it is
+tested against and the walk every other platform runs (scene/query.walk_bvh
+chooses).
 """
 
 from __future__ import annotations
@@ -159,7 +161,7 @@ def interpolate_hit(tris: TrianglePool, tri_idx: jnp.ndarray, bary: jnp.ndarray)
     after interpolation; callers flip backfaces.
 
     Uses the fused [N, 16] shading record when present: ONE gather instead
-    of six (the gathers dominate shading cost on TPU).
+    of six.
     """
     tid = jnp.maximum(tri_idx, 0)
     w = (1.0 - bary[..., 0] - bary[..., 1])[..., None]

@@ -1,10 +1,11 @@
 """Device mesh construction + scene replication.
 
 The reference's only parallelism is intra-process threads over pixels
-(SURVEY.md §2 P1/P2); the TPU-native equivalent of its tile-job fan-out is a
-1-D `rays` mesh axis: the flat pixel/sample batch is sharded across chips,
+(SURVEY.md §2 P1/P2); the device equivalent of its tile-job fan-out is a
+1-D `rays` mesh axis: the flat pixel/sample batch is sharded across cards,
 the scene (BVH nodes, triangles, textures, materials) is replicated per
-device, and film assembly / gradient reduction ride XLA collectives over ICI.
+device, and film assembly / gradient reduction ride XLA collectives (NCCL
+over NVLink on a multi-GPU host, whose all-to-all links suit a 1-D mesh).
 """
 
 from __future__ import annotations

@@ -15,7 +15,6 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from cpu_ray_tracer_tpu.core import rng as rng_mod
 from cpu_ray_tracer_tpu.core.camera import Camera, full_frame_rays
@@ -36,11 +35,11 @@ def sharded_render_pass(scene: DeviceScene, camera: Camera, mesh: Mesh, axis: st
     scene_spec = jax.tree.map(lambda _: P(), scene)
 
     @functools.partial(
-        shard_map,
+        jax.shard_map,
         mesh=mesh,
         in_specs=(scene_spec, P(axis), P(axis), P(axis)),
         out_specs=P(axis),
-        check_rep=False,
+        check_vma=False,
     )
     def _trace_shard(scene_rep, o, d, seeds):
         radiance, _ = pathtracer.sample_radiance(scene_rep, o, d, seeds)

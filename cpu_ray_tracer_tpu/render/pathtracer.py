@@ -21,8 +21,7 @@ Wavefront compaction: before every bounce >= 1 the ray state is globally
 re-sorted by (terminated-last, origin Morton code, direction octant) and
 processed in CHUNKS; a chunk whose slots lie wholly beyond the live-ray
 count is skipped with `lax.cond` — real, unbiased work skipping (XLA
-branches at runtime), adaptive to how fast paths terminate.  The sort also
-feeds the Pallas packet kernel direction/locality-coherent tiles.
+branches at runtime), adaptive to how fast paths terminate.
 
 RNG: stateless per-ray xorshift32 streams (core/rng.py) seeded by
 (pixel, sample) — the vectorizable replacement for the reference's per-tile
@@ -50,8 +49,7 @@ EPS = constants.SHADE_EPS
 
 def _default_chunks() -> int:
     """Compaction chunks per bounce (shared by sample_radiance and
-    render_pass — keep the default in ONE place).  48 measured best on v5e
-    at the 921600-ray headline (12.4 -> 12.9 Mrays/s vs 32)."""
+    render_pass — keep the default in ONE place)."""
     return int(_os.environ.get("CRT_COMPACTION_CHUNKS", "48"))
 
 
@@ -59,9 +57,7 @@ def _pick_chunks(r: int, c: int) -> int:
     """Largest divisor of r that is <= the requested chunk count.
 
     A non-dividing count must not silently fall to 1 (= compaction OFF):
-    at 1024x640 the r3 default (48) did exactly that — 655360 % 48 != 0
-    crippled every render at that resolution (the config-4 gap's silent
-    component)."""
+    at 1024x640, 655360 % 48 != 0."""
     if r < 4096 or c <= 1:
         return 1
     while c > 1 and r % c != 0:
@@ -84,9 +80,7 @@ def _apply_perm(x, perm, inv):
     """Permutation gather with a GATHER backward: y = x[perm] transposes to
     dL/dx = dL/dy[inv] because a permutation's adjoint is its inverse.  The
     autodiff default would transpose the gather into a random-index
-    multi-lane scatter — the measured TPU scatter cliff (78 ms vs 8.5 ms for
-    [R,3] at R=921600, see docs/ROOFLINE.md) — which made compaction
-    unusable under grad in r2."""
+    multi-lane scatter."""
     return x[perm]
 
 
@@ -102,8 +96,7 @@ _apply_perm.defvjp(_apply_perm_fwd, _apply_perm_bwd)
 
 
 def _inverse_perm(perm):
-    """Inverse permutation via the fast 1-D iota scatter (rank-1 scatters
-    avoid the TPU scatter cliff)."""
+    """Inverse permutation via a 1-D iota scatter."""
     r = perm.shape[0]
     return (
         jnp.zeros((r,), jnp.int32)
@@ -170,16 +163,14 @@ def _permute_state_diff(state: dict, perm) -> dict:
 def _permute_state(state: dict, perm) -> dict:
     """Apply one permutation to the whole per-ray state with a SINGLE gather:
     all fields are packed (ints bitcast to f32 — a gather only moves bytes)
-    into one [R, 15] array, gathered once, then split back.  TPU gathers
-    cost ~per-index, so one wide gather beats a dozen 1-3-lane ones —
-    but stay at or under 24 lanes: the TPU row-gather lowering has a
-    cliff at 25+ lanes (measured 10.4 ms at [R,24] vs 37.7 ms at [R,25]
-    for R=921600), which is why the bool flags share one bit-packed lane
-    and the miss/lit records are single bits (see _RAY_KEYS note).
+    into one [R, 15] array, gathered once, then split back: one wide row
+    gather in place of a dozen 1-3-lane ones.  The bool flags share one
+    bit-packed lane and the miss/lit records are single bits (see
+    _RAY_KEYS note).
 
-    Deferred bilinear tap records (_TAP_KEYS, the r5 d1-tap deferral —
-    see sample_radiance) ride the same packed gather as 6 extra lanes
-    when present: 21 total, still under the cliff.
+    Deferred bilinear tap records (_TAP_KEYS, the d1-tap deferral — see
+    sample_radiance) ride the same packed gather as 6 extra lanes when
+    present: 21 in all.
 
     `perm` is either gather indices (sources), or ("scatter", pos) with
     DESTINATION indices (the counting-sort path computes the inverse
@@ -241,11 +232,9 @@ def _compaction_perm(scene: DeviceScene, o, d, alive, locus=None, allow_scatter=
 
     Default "locus": STABLE (dead-last, direction octant, previous-hit
     triangle id) — the finest origin-coherence key (rays leaving the same
-    triangle share an origin to within one primitive).  With the 18-lane
-    permute this beats "octant" (stable octant only, preserving existing
-    origin order) by ~2% end-to-end; both beat re-binning by 7-bit Morton
-    (31.8 vs 39.5 ms bounce kernel on bunny_teapot).
-    CRT_RESORT=morton restores the (dead, Morton, octant) key."""
+    triangle share an origin to within one primitive).  CRT_RESORT=octant
+    keeps only the stable octant order; CRT_RESORT=morton uses the
+    (dead, Morton, octant) key."""
     oct_ = ray_octants(d)
     mode = _os.environ.get("CRT_RESORT", "locus")
     if mode == "octant_cs" and not allow_scatter:
@@ -312,22 +301,14 @@ def _compaction_perm(scene: DeviceScene, o, d, alive, locus=None, allow_scatter=
     return jnp.argsort(key)
 
 
-def _bounce_step(
-    scene, nearest, depth_limit, use_tcap, t_cap, depth, s,
-    capped=False, tap_chunks=1, defer_tex=False,
-):
+def _bounce_step(scene, nearest, depth_limit, depth, s, tap_chunks=1, defer_tex=False):
     """Advance every ray in `s` one path segment (any batch size).
-
-    Extracted from sample_radiance so the wavefront-kernel tail
-    (_sample_radiance_wavefront) can reuse the exact same bounce.
 
     `tap_chunks`: chunk the albedo texel tap (only) so image regions
     with no textured hit skip its HBM gather (see get_albedo's
     lax.cond).  Used by the full-width PRIMARY call, whose pixel order
     is spatially coherent; bounce-depth calls are already chunked by
-    depth_body so they pass 1.  Chunking only the tap (not traversal)
-    keeps kernel tile composition — and thus t-tie resolution on shared
-    triangle edges — identical for any chunk count.
+    depth_body so they pass 1.
 
     `defer_tex` (bilinear diff mode): do NOT gather texels here — record
     the 4 bilinear tap indices + 2 lerp weights ("tap_idx" [W, 4] i32,
@@ -340,20 +321,7 @@ def _bounce_step(
     purely multiplicative per-bounce factor on throughput (lobe choice
     and direction never read it), so the deferral is exact."""
     alive = s["alive"]
-    if capped and use_tcap:
-        res = nearest(scene, s["o"], s["d"], t0=t_cap, mask=alive, sort_rays=False)
-        missed = (res["obj_idx"] < 0) & alive
-        res2 = nearest(scene, s["o"], s["d"], mask=missed, sort_rays=False)
-        for k in ("t", "obj_idx", "tri_idx", "mat_id_tri"):
-            res[k] = jnp.where(missed, res2[k], res[k])
-        res["bary"] = jnp.where(missed[..., None], res2["bary"], res["bary"])
-        for k in ("shade_rec", "shade_normal", "shade_uv"):
-            if k in res:
-                res[k] = jnp.where(missed[..., None], res2[k], res[k])
-        res["traversed"] = res["traversed"] + res2["traversed"]
-        res["tested"] = res["tested"] + res2["tested"]
-    else:
-        res = nearest(scene, s["o"], s["d"], mask=alive, sort_rays=False)
+    res = nearest(scene, s["o"], s["d"], mask=alive)
     t = res["t"]
     obj = res["obj_idx"]
     hit = (obj >= 0) & alive
@@ -459,7 +427,7 @@ def _bounce_step(
         # hits / misses / dead lanes never have albedo multiplied into
         # throughput, so their deferred factor is exactly 1 and the
         # estimator is unchanged.  Records are six 1-D arrays (_TAP_KEYS
-        # note: trailing dims would pad 42-128x when stacked over scans).
+        # note).
         rec = surf & textured
         recs = _bilinear_records(
             mf["tex_off"], mf["tex_w"], mf["tex_h"],
@@ -468,145 +436,6 @@ def _bounce_step(
         for k, v in zip(_TAP_KEYS, recs):
             out[k] = v
     return out
-
-
-def _kernel_scene_eligible(scene) -> bool:
-    """Scene-side eligibility shared by the PT wavefront kernel and the
-    fused Whitted level-0 kernel: SMEM node tables, fused shade rows, quad
-    light + floor plane present, a small material table, and a packed
-    texel atlas (the deferred-albedo epilogues gather it)."""
-    if not getattr(scene, "use_pallas", False):
-        return False
-    pk = getattr(scene, "packed", None)
-    if pk is None or pk.node_aabb is None or pk.tri_shade_rows is None:
-        return False
-    if not pk.meta_in_shade:
-        return False
-    if getattr(scene, "shared", None) is not None:
-        return False
-    # an explicit wide-kernel experiment takes precedence — except the
-    # "bounce" split, where the primary kernel keeps the binary tables and
-    # only host (bounce) traversals go wide
-    if scene.packed_wide is not None and _os.environ.get("CRT_WIDE") != "bounce":
-        return False
-    if scene.bilinear or not (scene.has_light and scene.has_floor):
-        return False
-    if int(scene.materials.albedo.shape[0]) > 16:
-        return False
-    # tex offsets ride the SMEM param table as exact hi/lo f32 pairs
-    # (wavefront_pt._MAT_F note), so the atlas bound is the i32 range
-    atlas = scene.atlas
-    if atlas.packed is None or int(atlas.packed.shape[0]) >= (1 << 31):
-        return False
-    return True
-
-
-def _use_wavefront(scene, differentiable: bool) -> bool:
-    """Eligibility of the in-kernel bounce wavefront
-    (ops/pallas/wavefront_pt.py).  CRT_WAVEFRONT: "auto" (default — on for
-    the real TPU backend), "1" (force on, e.g. interpret-mode tests),
-    "0" (off)."""
-    mode = _os.environ.get("CRT_WAVEFRONT", "auto")
-    if mode == "0" or differentiable:
-        return False
-    if not _kernel_scene_eligible(scene):
-        return False
-    if mode == "1":
-        return True
-    return jax.default_backend() == "tpu"
-
-
-def _tcap_setup(scene, differentiable: bool):
-    """t-capped two-phase bounce traversal (opt-in, CRT_TCAP=0.1): bounce
-    rays usually hit NEARBY geometry, and a small t0 cap makes the slab test
-    (tmin < t_best) prune almost the whole tree.  A hit found under the cap
-    IS the global nearest (any farther hit has larger t), so only capped
-    MISSES pay the full-range second pass — correctness is exact, not
-    approximate.  Default OFF: on open-sky scenes ~40% of bounce rays
-    escape, miss under the cap, and pay both passes (bench: 6.73 -> 6.28
-    Mrays/s at 0.1); a win only on closed interiors."""
-    tcap_frac = float(_os.environ.get("CRT_TCAP", "0"))
-    world = getattr(scene, "packed", None)
-    use_tcap = (
-        not differentiable
-        and tcap_frac > 0
-        and world is not None
-        and getattr(scene, "use_pallas", False)
-    )
-    t_cap = None
-    if use_tcap:
-        import numpy as _np
-
-        diag = float(
-            _np.linalg.norm(_np.asarray(world.world_max) - _np.asarray(world.world_min))
-        )
-        t_cap = jnp.float32(diag * tcap_frac)
-    return use_tcap, t_cap
-
-
-def _tex_rgb(scene, idx):
-    """Packed-u32 texel rows -> [W, 3] f32 (1.0 where idx < 0): the deferred
-    nearest-texel factor gather shared by the depth-0 epilogue and the fused
-    deep tail."""
-    p = scene.atlas.packed[jnp.maximum(idx, 0)]
-    rgb = jnp.stack(
-        [
-            ((p >> 16) & 0xFF).astype(jnp.float32),
-            ((p >> 8) & 0xFF).astype(jnp.float32),
-            (p & 0xFF).astype(jnp.float32),
-        ],
-        axis=-1,
-    ) * jnp.float32(1.0 / 255.0)
-    return jnp.where((idx >= 0)[..., None], rgb, 1.0)
-
-
-def _fused_deep(scene, head, rays_traced, deep0: int, n_deep: int,
-                depth_limit: int, chunks: int):
-    """Run bounce depths [deep0, deep0 + n_deep) fully in-kernel on the
-    (sorted, tier-width) `head` state — ONE Pallas launch instead of
-    n_deep host bounces, each of which pays a narrow re-sort, a kernel
-    launch, the [W,16] shade-record gather and the chunk-scan glue
-    (measured r5: ~4.6 ms per deep depth at tier width 19200 for <2% live
-    rays — pure fixed cost).  The kernel keeps ray state in VMEM across the
-    depths; texel taps come back as per-depth index records and multiply
-    into the carried throughput here (exact — albedo only ever scales
-    throughput, see ops/pallas/wavefront_pt.py module docstring).
-
-    r3 measured in-kernel bounces a LOSS at full width (11.58 vs 12.73
-    Mrays/s): unsorted full-width tiles walk 3x unions and in-kernel shade
-    carries cost what the host's fused gathers cost.  At tier width the
-    trade inverts — per-launch fixed costs dominate the tail, and the head
-    was locus-sorted by the cascade entry sort, so tile unions stay tight."""
-    from cpu_ray_tracer_tpu.ops.pallas import wavefront_pt
-
-    wf = wavefront_pt.trace(
-        scene, head["o"], head["d"], head["seed"],
-        k_depths=n_deep, depth_limit=depth_limit,
-        interpret=jax.default_backend() != "tpu",
-        alive=head["alive"], inside=head["inside"], depth_base=deep0,
-    )
-    tp = head["throughput"] * wf["tp"]
-    for k in range(n_deep):
-        idx = wf["tex_idx"][:, k]
-        f_k = _chunked_contrib(
-            lambda i: _tex_rgb(scene, i) - 1.0, idx >= 0, (idx,), chunks
-        )
-        tp = tp * (f_k + 1.0)
-    out = dict(
-        o=wf["o"],
-        d=wf["d"],
-        seed=wf["seed"],
-        throughput=tp,
-        inside=wf["inside"],
-        alive=wf["alive"],
-        missed=head["missed"] | wf["missed"],
-        lit=head["lit"] | wf["lit"],
-        traversed=head["traversed"] + wf["traversed"],
-        tested=head["tested"] + wf["tested"],
-        pixel=head["pixel"],
-        locus=jnp.where(wf["locus"] >= 0, wf["locus"], head["locus"]),
-    )
-    return out, rays_traced + jnp.sum(wf["live_counts"]).astype(jnp.int32)
 
 
 def _chunked_contrib(fn, any_mask, args, chunks: int):
@@ -633,156 +462,10 @@ def _chunked_contrib(fn, any_mask, args, chunks: int):
     return out.reshape(r, *out.shape[2:])
 
 
-def _sample_radiance_wavefront(
-    scene, o, d, seeds, depth_limit: int, compaction_chunks: int
-):
-    """sample_radiance via the in-kernel bounce wavefront: the first
-    CRT_WF_DEPTHS (default 2) bounce depths run inside ONE Pallas program
-    per ray tile with state resident in VMEM (no per-depth HBM round-trip,
-    no sorts — rays stay in pixel order); survivors spill once into the
-    standard sorted liveness-cascade tail.
-
-    Exactness: the kernel defers every texture tap by recording texel
-    INDICES (see ops/pallas/wavefront_pt.py module docstring for why this
-    commutes); this epilogue multiplies the factors back, adds the terminal
-    emissions (light hit / deferred sky), runs the tail for rays alive
-    after the kernel depths, and combines:
-
-        radiance = (kernel_emission + tail_radiance) * kernel_texel_product
-
-    The three emission sources are mutually exclusive per ray (a path
-    terminates exactly once)."""
-    from cpu_ray_tracer_tpu.ops.pallas import wavefront_pt
-
-    r = o.shape[0]
-    k_depths = min(int(_os.environ.get("CRT_WF_DEPTHS", "1")), depth_limit + 1)
-    interpret = jax.default_backend() != "tpu"
-    wf = wavefront_pt.trace(
-        scene, o, d, seeds, k_depths, depth_limit, interpret=interpret
-    )
-    chunks = compaction_chunks if r % max(compaction_chunks, 1) == 0 else 1
-
-    # deferred texel factors of the kernel depths: one chunked gather per
-    # kernel depth (chunks with no textured hit skip the HBM gather
-    # entirely).  Stays in PIXEL order and multiplies at the very end.
-    factor = jnp.ones((r, 3), jnp.float32)
-    for k in range(k_depths):
-        idx = wf["tex_idx"][:, k]
-        f_k = _chunked_contrib(
-            lambda i: _tex_rgb(scene, i) - 1.0, idx >= 0, (idx,), chunks
-        )
-        factor = factor * (f_k + 1.0)
-
-    rays_traced = jnp.sum(wf["live_counts"]).astype(jnp.int32)
-
-    def sky_fn(m, tp, dd):
-        return jnp.where(m[..., None], tp, 0.0) * query.sky_color(scene, dd)
-
-    if k_depths > depth_limit:
-        # no tail: terminal emissions in pixel order
-        emit = jnp.where(wf["lit"][..., None], wf["tp"] * scene.light_color, 0.0)
-        emit = emit + _chunked_contrib(
-            sky_fn, wf["missed"], (wf["missed"], wf["tp"], wf["d"]), chunks
-        )
-        return emit * factor, dict(
-            rays_traced=rays_traced,
-            traversed=wf["traversed"],
-            tested=wf["tested"],
-        )
-
-    # spill the survivors into the sorted liveness-cascade tail.  The
-    # kernel depths' missed/lit bits ride the tail state (dead lanes are
-    # never mutated — _RAY_KEYS note), so ALL terminal emissions are
-    # computed in ONE pass over the FINAL sorted order below: the depth-0
-    # sky misses end up compacted into the dead suffix there, where the
-    # chunked equirect gather actually skips, instead of paying a separate
-    # pixel-order epilogue at ~70% occupancy (r5: the separate d0 sky pass
-    # measured 7.2 ms/pass — as much as the primary traversal itself).
-    state = dict(
-        o=wf["o"],
-        d=wf["d"],
-        seed=wf["seed"],
-        throughput=wf["tp"],
-        inside=wf["inside"],
-        alive=wf["alive"],
-        missed=wf["missed"],
-        lit=wf["lit"],
-        traversed=wf["traversed"],
-        tested=wf["tested"],
-        pixel=jnp.arange(r, dtype=jnp.int32),
-        locus=wf["locus"],
-    )
-    use_tcap, t_cap = _tcap_setup(scene, False)
-    bounce = functools.partial(
-        _bounce_step, scene, query.find_nearest, depth_limit,
-        use_tcap, t_cap,
-    )
-    chunk = r // max(chunks, 1)
-    depth_body = _make_depth_body(scene, bounce, chunk)
-    depth_body_ns = _make_depth_body(scene, bounce, chunk, sort=False)
-    next_d = k_depths
-    if (
-        next_d == 1 and depth_limit >= 1 and chunks > 1
-        and _os.environ.get("CRT_D1_TIER", "0") == "1"
-    ):
-        # depth 1 through its own one-depth cascade with a WIDE tier
-        # ladder.  OFF by default: measured NEUTRAL (+0.8 ms) on the
-        # headline — the chunk scan's dead-chunk lax.cond already skips
-        # the sorted dead suffix, so the tier's narrower static width buys
-        # nothing the conds hadn't (r5 A/B, ab_tail.py; kept as a measured
-        # experiment for the ROOFLINE re-audit).
-        state, rays_traced = _cascade(
-            scene, state, rays_traced, [1], chunk, depth_body, r,
-            tiers=(4, 16, 36, 44), depth_body_first=depth_body_ns,
-        )
-        next_d = 2
-    elif next_d == 1 and depth_limit >= 1:
-        (state, rays_traced), _ = jax.lax.scan(
-            depth_body, (state, rays_traced), jnp.arange(1, 2)
-        )
-        next_d = 2
-    if next_d <= depth_limit:
-        # depths >= 2: the in-kernel fused tail is OFF by default — both
-        # variants measured NET LOSSES at depth 5 (r5 A/B, ab_tail.py:
-        # single k=4 launch +14 ms from union blowup without resorts;
-        # per-depth k=1 launches +5 ms despite winning -0.9 ms at depth 2
-        # alone).  CRT_FUSED_TAIL=auto|1 keeps them runnable as the
-        # measured experiments behind the docs/ROOFLINE.md re-audit table.
-        fused = (
-            _os.environ.get("CRT_FUSED_TAIL", "0") != "0"
-            and chunks > 1
-        )
-        state, rays_traced = _cascade(
-            scene, state, rays_traced,
-            list(range(next_d, depth_limit + 1)), chunk, depth_body, r,
-            fused_depth_limit=depth_limit if fused else None,
-            depth_body_first=depth_body_ns,
-        )
-
-    # ONE terminal-emission pass over the final sorted order (a path
-    # terminates exactly once; dead lanes' d/throughput are frozen at
-    # termination, so lit/missed emissions reconstruct exactly here)
-    rad = jnp.where(
-        state["lit"][..., None], state["throughput"] * scene.light_color, 0.0
-    ) + _chunked_contrib(
-        sky_fn, state["missed"],
-        (state["missed"], state["throughput"], state["d"]), chunks,
-    )
-    if chunks > 1:
-        rad = _apply_perm(rad, _inverse_perm(state["pixel"]), state["pixel"])
-    return rad * factor, dict(
-        rays_traced=rays_traced,
-        traversed=state["traversed"],
-        tested=state["tested"],
-    )
-
-
 # deferred-tap record keys emitted by _bounce_step in defer_tex mode: four
 # tap indices (-1 = no tap) + two lerp weights, all 1-D [W] arrays.  The
-# 1-D shape is load-bearing: these stack across the depth scan ([deep, W]
-# — W a multiple of 128 pads ZERO), where any trailing small dim would pay
-# the TPU tile padding (measured: [deep, R, 4, 1] residuals padded 128x to
-# 7.03 GB in the first chunked-bilinear attempt).
+# 1-D shape keeps the residuals that stack across the depth scan
+# ([deep, W]) free of small trailing dims, which tiled layouts pad.
 _TAP_KEYS = ("tap_i0", "tap_i1", "tap_i2", "tap_i3", "tap_tx", "tap_ty")
 
 
@@ -801,9 +484,8 @@ def _tap_rows(texels_flat, idx):
 def _tap_pairs(texels_flat, ileft, iright):
     """Fetch the horizontally-ADJACENT tap pair with ONE 6-wide slice
     gather: bilinear taps within a texture row satisfy
-    iright in {ileft, ileft + 1} (clamp-to-edge), and TPU gathers cost
-    ~per-index regardless of slice width, so one [W, 6] fetch replaces two
-    [W, 3] row gathers.  The boundary duplicate (iright == ileft at the
+    iright in {ileft, ileft + 1} (clamp-to-edge), so one [W, 6] fetch
+    replaces two [W, 3] row gathers.  The boundary duplicate (iright == ileft at the
     texture's right edge) selects the left slice; the 6-wide fetch may then
     read 3 floats past the row (or the atlas — CLIP mode clamps), whose
     values are discarded by the same select.
@@ -842,10 +524,7 @@ def _tap_quad(texels_flat, i0, i1, i2, i3):
 
     Default: four per-tap ROW gathers (`_tap_rows`).  The 6-wide
     adjacent-PAIR slice gather (`_tap_pairs`, CRT_TAP_PAIRS=1) halves the
-    index count but measured 7x SLOWER end-to-end at the r5 bench shape
-    (bilinear fwd+bwd step 0.81 s -> 5.6 s, bisected to this commit's
-    introduction): XLA lowers the wide-slice gather + re-select pair far
-    worse than the plain row gathers it replaced."""
+    index count; on the H100 it is not measured."""
     if _os.environ.get("CRT_TAP_PAIRS", "0") == "1":
         t0, t1 = _tap_pairs(texels_flat, i0, i1)
         t2, t3 = _tap_pairs(texels_flat, i2, i3)
@@ -894,8 +573,8 @@ def _apply_tap_factor(tp, texels_flat, i0, i1, i2, i3, tx, ty):
     lanes).  Runs at depth width OUTSIDE the chunk scans but INSIDE the
     depth scan, so the custom VJP exists to pin the residual shapes: only
     the 1-D records and three 1-D throughput channel slices are saved
-    (default AD would stack 42.7x-padded [W, 4, 3] gather residuals per
-    depth iteration — the measured 38.9 GB chunked-bilinear OOM)."""
+    (default AD would stack [W, 4, 3] gather residuals per depth
+    iteration)."""
     f0, f1, f2 = _tap_channels(texels_flat, i0, i1, i2, i3, tx, ty)
     return jnp.stack([tp[:, 0] * f0, tp[:, 1] * f1, tp[:, 2] * f2], axis=1)
 
@@ -924,11 +603,9 @@ def _apply_tap_factor_bwd(res, g):
     # texel cotangents: 12 rank-1 contributions per lane (4 taps x 3
     # channels), scatter-added into the flat atlas CHUNKED with dead-chunk
     # skipping: taps exist only on textured-bounce lanes (~15-25% at depth
-    # 0, less deeper), and the full-width 11M-id scatter alone measured
-    # 125 ms/step at the r5 bench shape — 47% of the whole bilinear
-    # fwd+bwd step was this one op at mostly-zero occupancy.  A lax.cond
-    # per chunk skips the scatter where no lane is valid (the zero
-    # contributions are exact either way).
+    # 0, less deeper), so a full-width scatter runs at mostly-zero
+    # occupancy.  A lax.cond per chunk skips the scatter where no lane is
+    # valid (the zero contributions are exact either way).
     w = valid.shape[0]
     ids2 = jnp.stack([idx[j] * 3 + c for j in range(4) for c in range(3)])
     cts2 = jnp.stack([gtp[c] * ws[j] for j in range(4) for c in range(3)])
@@ -991,18 +668,16 @@ def _make_depth_body(scene, bounce, chunk, diff=False, texels_flat=None,
     the texture factor multiplies throughput here at depth width, outside
     the scan, so the scan transpose never accumulates atlas cotangents.
 
-    `apply_taps=False` (the r5 d1-tap deferral) leaves the records IN the
+    `apply_taps=False` (the d1-tap deferral) leaves the records IN the
     returned state instead: they ride the next compaction sort as 6 extra
     permute lanes and the cascade applies the factor on the compacted tier
     HEAD — tap-carrying lanes are exactly the lanes alive at the next
     depth, so the factor's backward (the atlas cotangent scatter) runs at
-    tier width instead of full width (the full-width d1 apply's scatter
-    was the largest single piece of the bilinear fwd+bwd step).
+    tier width instead of full width.
 
     `sort=False` skips the per-depth compaction resort: a cascade tier's
     entry sort already compacted+ordered the state, so the FIRST depth
-    inside a tier re-sorting it is a pure no-op permutation — measured
-    ~7 ms of wasted argsort+[R,15] gather at the r5 depth-1 tier width."""
+    inside a tier re-sorting it is a pure no-op permutation."""
     defer_tex = texels_flat is not None
 
     def depth_body(carry, depth):
@@ -1039,7 +714,7 @@ def _make_depth_body(scene, bounce, chunk, diff=False, texels_flat=None,
             piece, calive = inp
             out = jax.lax.cond(
                 calive > 0,
-                lambda p: bounce(depth, p, capped=True),
+                lambda p: bounce(depth, p),
                 dead_chunk,
                 piece,
             )
@@ -1063,30 +738,20 @@ def _make_depth_body(scene, bounce, chunk, diff=False, texels_flat=None,
 
 
 def _cascade(scene, state, rays_traced, deep, chunk, depth_body, r,
-             diff=False, tiers=None, fused_depth_limit=None,
-             depth_body_first=None, texels_flat=None):
+             diff=False, tiers=None, depth_body_first=None, texels_flat=None):
     """Liveness cascade over the `deep` depth indices.
 
-    Deeper bounces usually have FEW survivors — measured on the bench
-    scene: 60.8% live at depth 1, 4.5% at depth 2, <=2.2% past that — yet
-    a full-width depth iteration costs ~90ms at 1M rays (resort ~22ms +
-    per-chunk fixed costs) regardless of liveness.  So a cascade picks the
+    Deeper bounces usually have FEW survivors on open scenes (about 60%
+    live at depth 1, under 5% from depth 2), yet a full-width depth
+    iteration pays its resort and per-chunk fixed costs regardless of
+    liveness.  So a cascade picks the
     narrowest static buffer (lax.cond nest) that holds every live ray, and
     all remaining depths run inside it; the full-width scan stays as the
     fallback for mirror-box-style scenes where most paths survive.  The
-    chunk width is identical in every tier, so the Pallas kernels and the
-    traced bounce body are shared across tiers.
+    chunk width is identical in every tier, so the traced bounce body is
+    shared across tiers.
 
-    `tiers`: ladder of tier widths in chunks (default (1, 4, 16, 64)).
-    Depth 1 goes through the cascade too since r5, with a wide ladder
-    (16/36/44 chunks): ~60% of paths survive the primary hit on open
-    scenes, so its tier shaves the dead ~40% off every per-chunk cost
-    without an extra sort (the tier's entry sort IS depth-1's compaction
-    sort).
-
-    `fused_depth_limit` non-None switches the tier body from the per-depth
-    host scan to ONE in-kernel multi-bounce launch (_fused_deep); `deep`
-    must then be a static python range.
+    `tiers`: ladder of tier widths in chunks (default (1, 4, 16, 36, 44)).
 
     `depth_body_first`: nosort variant of depth_body for the FIRST depth
     inside a tier (the tier's entry sort already ordered the head — see
@@ -1115,8 +780,6 @@ def _cascade(scene, state, rays_traced, deep, chunk, depth_body, r,
     first_body = depth_body_first if depth_body_first is not None else depth_body
 
     def make_tier(width):
-        n_chunks = max(width // chunk, 1)
-
         def tier(carry):
             st, rt = carry
             st = _sort_state(scene, st, diff)  # compact live rays into the prefix
@@ -1124,34 +787,11 @@ def _cascade(scene, state, rays_traced, deep, chunk, depth_body, r,
             tail = {k: st[k][width:] for k in _RAY_KEYS}
             if has_taps:
                 head = apply_deferred(head)
-            if fused_depth_limit is not None:
-                if _os.environ.get("CRT_FUSED_TAIL", "auto") == "1":
-                    # single launch for ALL deep depths: measured +14 ms at
-                    # depth 5 — without resorts between depths the tile
-                    # unions blow up (the r3 K>=2 failure at tier width).
-                    # Kept only as the A/B reference config.
-                    head, rt = _fused_deep(
-                        scene, head, rt, int(deep[0]), len(deep),
-                        fused_depth_limit, n_chunks,
-                    )
-                else:
-                    # per-depth launches with narrow re-sorts between: the
-                    # kernel replaces the host bounce's 4-chunk launch
-                    # train + shade glue (measured -0.9 ms per deep depth),
-                    # the sort keeps unions tight
-                    for i, dd in enumerate(deep):
-                        if i > 0:
-                            head = _sort_state(scene, head, diff)
-                        head, rt = _fused_deep(
-                            scene, head, rt, int(dd), 1,
-                            fused_depth_limit, n_chunks,
-                        )
-            else:
-                (head, rt), _ = first_body((head, rt), jnp.asarray(deep[0]))
-                if len(deep) > 1:
-                    (head, rt), _ = jax.lax.scan(
-                        depth_body, (head, rt), jnp.asarray(deep[1:])
-                    )
+            (head, rt), _ = first_body((head, rt), jnp.asarray(deep[0]))
+            if len(deep) > 1:
+                (head, rt), _ = jax.lax.scan(
+                    depth_body, (head, rt), jnp.asarray(deep[1:])
+                )
             st = {
                 k: jnp.concatenate([head[k], tail[k]], axis=0)
                 for k in _RAY_KEYS
@@ -1163,17 +803,16 @@ def _cascade(scene, state, rays_traced, deep, chunk, depth_body, r,
     n_live = jnp.sum(state["alive"].astype(jnp.int32))
     # tier ladder extends with the ray population: megapasses (several
     # samples per pass) keep chunk SIZE constant, so deep-depth live counts
-    # scale with samples/pass and r3's two-tier ladder fell through to the
-    # full-width fallback — the measured reason BENCH_SPB lost (4.5 vs 12.9
-    # Mrays/s).  Extra tiers are free at 1 spp (the cond nest just never
-    # takes them).
+    # scale with samples/pass and a short ladder would fall through to the
+    # full-width fallback.  Extra tiers are free at 1 spp (the cond nest
+    # just never takes them).
     if tiers is None:
-        # wide rungs (36/44 chunks) added in r5 for closed-interior scenes:
-        # inside_scene keeps 52%/35%/25% of paths alive through depths 2-4,
-        # which used to fall through to the FULL-width fallback — every
-        # deep depth then paid a full-width sort+permute (~10 ms each at
-        # 1280x720).  A 0.75R tier caps that at no cost to open scenes
-        # (their 4.5% deep liveness still lands on the narrow rungs).
+        # wide rungs (36/44 chunks) for closed-interior scenes: inside_scene
+        # keeps 52%/35%/25% of paths alive through depths 2-4, which would
+        # otherwise fall through to the full-width fallback — every deep
+        # depth then pays a full-width sort+permute.  A 0.75R tier caps
+        # that at no cost to open scenes (their ~5% deep liveness still
+        # lands on the narrow rungs).
         tiers = (1, 4, 16, 36, 44)
     tier_ws = [w * chunk for w in tiers if w * chunk < r]
     run = deep_full
@@ -1203,13 +842,12 @@ def sample_radiance(
     `compaction_chunks`: chunks per bounce >= 1 (default from
     CRT_COMPACTION_CHUNKS, see _default_chunks(); 1 disables skipping).
 
-    differentiable=True keeps full compaction (r3): each bounce is
+    differentiable=True keeps full compaction: each bounce is
     rematerialized (jax.checkpoint) so the per-chunk scan saves only its
-    chunk INPUTS instead of the shading intermediates whose [.., 1]
-    trailing dims padded 128x and OOM'd in r2, and the compaction permutes
-    go through a custom-vjp gather whose backward is the INVERSE gather
-    (never a random-index scatter — the TPU scatter cliff).  Bilinear
-    (texture-learning) scenes chunk too since r4: the texel tap is
+    chunk INPUTS instead of the shading intermediates, and the compaction
+    permutes go through a custom-vjp gather whose backward is the INVERSE
+    gather (never a random-index scatter).  Bilinear (texture-learning)
+    scenes chunk too: the texel tap is
     deferred out of every chunk scan as (index, weight) records and
     applied at depth width (_bounce_step defer_tex / _tap_factor), with a
     flat [K*3] atlas view so scan transposes accumulate unpadded
@@ -1217,19 +855,13 @@ def sample_radiance(
     r = o.shape[0]
     if compaction_chunks is None:
         # grad mode prefers coarser chunks: the backward replays every live
-        # chunk, so per-chunk fixed costs weigh double (v5e fwd+bwd sweep:
-        # 16 -> 4.41, 48 -> 4.26, 8 -> 4.14 Mrays/s)
+        # chunk, so per-chunk fixed costs weigh double
         c = (
             int(_os.environ.get("CRT_COMPACTION_CHUNKS_DIFF", "16"))
             if differentiable
             else _default_chunks()
         )
         compaction_chunks = _pick_chunks(r, c)
-
-    if _use_wavefront(scene, differentiable):
-        return _sample_radiance_wavefront(
-            scene, o, d, seeds, depth_limit, compaction_chunks
-        )
 
     state = dict(
         o=o,
@@ -1253,11 +885,10 @@ def sample_radiance(
     )
 
     nearest = query.find_nearest_diff if differentiable else query.find_nearest
-    use_tcap, t_cap = _tcap_setup(scene, differentiable)
     # bilinear diff (texture learning): defer the texel tap out of every
     # chunk scan (see _bounce_step defer_tex) — the flat [K*3] texel view is
     # reshaped ONCE here so scan transposes accumulate unpadded flat
-    # cotangents (vecmath._gather3_flat docstring has the 19.8 GB story)
+    # cotangents (vecmath._gather3_flat docstring)
     # CRT_DEFER_TEX=0 forces the INLINE bilinear tap (sample_bilinear via
     # autodiff) — the independent formulation the deferred path's
     # hand-written VJP is tested against (tests/test_diff.py)
@@ -1271,32 +902,29 @@ def sample_radiance(
     if differentiable and getattr(scene, "bilinear", False) and not defer_tex:
         # bilinear diff WITHOUT deferral (giant atlas or CRT_DEFER_TEX=0):
         # chunked inline taps stack one atlas cotangent per chunk iteration
-        # in the scan transpose (the measured multi-GB blowup) — force the
-        # safe unchunked configuration instead of OOMing
+        # in the scan transpose (gigabytes at bench size) — force the
+        # safe unchunked configuration instead of running out of memory
         compaction_chunks = 1
     texels_flat = scene.atlas.texels.reshape(-1) if defer_tex else None
     bounce = functools.partial(
-        _bounce_step, scene, nearest, depth_limit, use_tcap, t_cap,
-        defer_tex=defer_tex,
+        _bounce_step, scene, nearest, depth_limit, defer_tex=defer_tex,
     )
     if differentiable:
         # rematerialize every bounce: backward recomputes traversal +
         # shading from the bounce's input state instead of saving the
-        # shading intermediates (the r2 OOM) — the classic remat trade
+        # shading intermediates — the classic remat trade
         raw_bounce = bounce
 
-        def bounce(depth, s, capped=False, tap_chunks=1):
-            fn = lambda d_, s_: raw_bounce(
-                d_, s_, capped=capped, tap_chunks=tap_chunks
-            )
+        def bounce(depth, s, tap_chunks=1):
+            fn = lambda d_, s_: raw_bounce(d_, s_, tap_chunks=tap_chunks)
             return jax.checkpoint(fn)(depth, s)
 
     rays_traced = jnp.int32(r)
     state = bounce(0, state, tap_chunks=1 if defer_tex else compaction_chunks)
     if defer_tex:
         # full-width tap-factor application (a chunked lax.cond-skipping
-        # variant measured SLOWER under grad: 1.75 vs 2.03 Mrays/s — the
-        # backward replays every chunk, doubling per-chunk fixed costs)
+        # variant pays per-chunk fixed costs twice under grad: the backward
+        # replays every chunk)
         state["throughput"] = _apply_tap_factor(
             state["throughput"], texels_flat,
             *(state.pop(k) for k in _TAP_KEYS),
@@ -1304,18 +932,16 @@ def sample_radiance(
 
     # Bounces 1..depth_limit as a scan over depth, each a scan over chunks:
     # `bounce` is traced exactly twice (full-width + chunk-width), keeping
-    # the program (and its Mosaic kernel count) small — a python-unrolled
-    # version compiled 20+ identical pallas kernels and took minutes.
+    # the program small — a python-unrolled version took minutes to compile.
     chunk = r // compaction_chunks
     depth_body = _make_depth_body(
         scene, bounce, chunk, diff=differentiable, texels_flat=texels_flat
     )
 
-    # r5 d1-tap deferral: depth 1's tap records ride the cascade's entry
+    # d1-tap deferral: depth 1's tap records ride the cascade's entry
     # sort (6 extra permute lanes) and the factor applies on the compacted
-    # tier HEAD — the full-width d1 _apply_tap_factor's backward (an
-    # 11M-id atlas scatter) was the largest single piece of the bilinear
-    # fwd+bwd step.  Exact: tap-carrying lanes are precisely the lanes
+    # tier HEAD, so the backward's atlas scatter runs at tier width, not
+    # full width.  Exact: tap-carrying lanes are precisely the lanes
     # alive at depth 2, which the sort compacts into the head.
     d1_defer = (
         defer_tex
@@ -1354,7 +980,7 @@ def sample_radiance(
     # copies (see _RAY_KEYS note).  The light emission is a gather-free
     # multiply — full width.  The equirect sky gather is chunked like the
     # texel tap: compaction leaves absorbed/live rays clustered, so chunks
-    # with no missed ray skip the ~11 ns/ray HBM gather via lax.cond.
+    # with no missed ray skip the random-access gather via lax.cond.
     def sky_contrib(missed, tp, d):
         sky_w = jnp.where(missed[..., None], tp, 0.0)
         return sky_w * query.sky_color(scene, d)
@@ -1362,10 +988,7 @@ def sample_radiance(
     radiance = jnp.where(
         state["lit"][..., None], state["throughput"] * scene.light_color, 0.0
     )
-    # defer_tex keeps the sky OUTSIDE the chunk scan at full width: three
-    # r4 alternatives measured worse (chunked+skipped custom-VJP taps 1.75,
-    # full-width custom-VJP taps 1.97 vs this config's 2.03 Mrays/s; the
-    # sky itself is ~16% of the bilinear fwd+bwd cost by a nearest-sky A/B)
+    # defer_tex keeps the sky OUTSIDE the chunk scan at full width
     if compaction_chunks > 1 and r % compaction_chunks == 0 and not defer_tex:
         ck = lambda x: x.reshape(compaction_chunks, r // compaction_chunks, *x.shape[1:])
 
@@ -1387,17 +1010,13 @@ def sample_radiance(
         radiance = radiance + sky_contrib(
             state["missed"], state["throughput"], state["d"]
         )
-    # un-permute radiance to the caller's ray order.  Multi-lane scatters
-    # are catastrophically slow on this stack (measured: [R,3] scatter
-    # 78 ms vs [R,3] gather 8.5 ms vs 1-D scatter ~4 ms at R=921600), so
-    # invert the permutation with a ONE-LANE iota scatter and apply it as
-    # a gather: inv[pixel[j]] = j  =>  out[i] = radiance[inv[i]].
+    # un-permute radiance to the caller's ray order: invert the
+    # permutation with a ONE-LANE iota scatter and apply it as a gather,
+    # inv[pixel[j]] = j  =>  out[i] = radiance[inv[i]].
     # traversed/tested stay in internal compaction order — every consumer
     # (traversal_summary) reduces them, which is permutation-invariant.
     # When no compaction sort ever ran (depth 0 or chunks == 1) `pixel` is
-    # still the identity and the inverse is skipped outright — also dodges
-    # an XLA TPU fusion-pass crash on constant-iota-indexed scatters
-    # (scatter_emitter.cc CHECK operand_indices.size() == 1).
+    # still the identity and the inverse is skipped outright.
     if depth_limit == 0 or compaction_chunks == 1:
         out = radiance
     else:
@@ -1427,11 +1046,8 @@ def render_pass(
     draws exactly the same per-sample streams as four 1-sample passes at
     b, b+1, b+2, b+3 — the estimator is unchanged, only batching differs.
 
-    Why megabatch several samples: ray density per spatial region scales
-    with samples/pixel, and the packet kernel's waste is (tile union size /
-    rays in tile) — denser, pixel-adjacent samples tighten every tile's
-    node/leaf union (primaries near-duplicate; bounce origins cluster on
-    the same surfaces), and per-pass fixed costs amortize."""
+    Why megabatch several samples: per-pass fixed costs amortize, and
+    pixel-adjacent samples keep neighbouring rays coherent."""
     n = camera.width * camera.height
     s = samples_per_pass
     if s == 1:
@@ -1445,8 +1061,7 @@ def render_pass(
         )
         return radiance.reshape(camera.height, camera.width, 3), stats
 
-    # pixel-major layout: a pixel's s samples are ADJACENT, so a 4096-ray
-    # kernel tile covers 4096/s pixels — maximum primary coherence
+    # pixel-major layout: a pixel's s samples are ADJACENT
     pixel_ids = jnp.repeat(jnp.arange(n, dtype=jnp.uint32), s)
     sample_k = jnp.tile(jnp.arange(s, dtype=jnp.uint32), n)
     seeds = rng_mod.pixel_seeds(pixel_ids, jnp.asarray(spp_index, jnp.uint32) + sample_k)

@@ -5,7 +5,7 @@ branches: a dielectric surface recurses into BOTH the refracted `(1-Fr)` and
 reflected `Fr` rays, a mirror into one ray, a diffuse surface into none
 (its radiance is computed locally from a shadow ray + constant ambient).
 
-TPU-native formulation: one ray buffer per depth level.  Level 0 holds the
+Batched formulation: one ray buffer per depth level.  Level 0 holds the
 primary rays; each level traces its buffer, scatters local radiance
 (sky/light/diffuse) into the film weighted by the per-ray throughput, and
 compacts up to two weighted children per ray into the next level's buffer
@@ -67,10 +67,8 @@ def _shade_level(
 
     # --- local radiance ---------------------------------------------------
     # sky: chunked with dead-chunk skipping (pathtracer._chunked_contrib) —
-    # the equirect gather is the single largest piece of a small-scene
-    # Whitted frame (r5 probe: 6.4 of ~12 ms on config-1), and primary
-    # misses are contiguous in pixel order, so chunks without a miss skip
-    # the 2M-texel gather entirely
+    # primary misses are contiguous in pixel order, so chunks without a
+    # miss skip the equirect gather entirely
     from cpu_ray_tracer_tpu.render.pathtracer import _chunked_contrib, _pick_chunks
 
     def sky_fn(m, w_, dd):
@@ -122,99 +120,13 @@ def _shade_level(
     return pixel, contrib, children, stats
 
 
-def _use_kernel_level0(scene, differentiable: bool) -> bool:
-    """Fused Whitted level-0 kernel eligibility (ops/pallas/whitted_wf.py).
-    CRT_WHITTED_WF: "auto" (default — on for the real TPU backend), "1"
-    (force, e.g. interpret-mode tests), "0" (off)."""
-    from cpu_ray_tracer_tpu.render import pathtracer as _pt
-
-    mode = _os.environ.get("CRT_WHITTED_WF", "auto")
-    if mode == "0" or differentiable:
-        return False
-    if not _pt._kernel_scene_eligible(scene):
-        return False
-    if mode == "1":
-        return True
-    return jax.default_backend() == "tpu"
-
-
-def _shade_level_kernel(scene: DeviceScene, o, d, inside, weight, pixel,
-                        emit_children: bool, alive=None):
-    """One Whitted level through the fused kernel: ONE Pallas launch runs
-    the traverse, hit-info interpolation and the point-light SHADOW walk;
-    this epilogue is pure vector math plus two chunk-skipped gathers (texel
-    factor, sky).  Same contract as _shade_level; `alive=None` = level 0
-    (all rays live), else the compacted child buffer's live mask."""
-    from cpu_ray_tracer_tpu.ops.pallas import whitted_wf
-    from cpu_ray_tracer_tpu.render.pathtracer import (
-        _chunked_contrib, _pick_chunks, _tex_rgb,
-    )
-
-    n = o.shape[0]
-    interpret = jax.default_backend() != "tpu"
-    wf = whitted_wf.trace_level0(
-        scene, o, d, inside, interpret=interpret, alive=alive
-    )
-    t = wf["t"]
-    point = o + t[..., None] * d
-    mf = query.material_fields(scene, wf["mat"])
-    chunks = _pick_chunks(n, 48)
-    texed = wf["tex_idx"] >= 0
-    tex_fac = _chunked_contrib(
-        lambda i: _tex_rgb(scene, i) - 1.0, texed, (wf["tex_idx"],), chunks
-    ) + 1.0
-    albedo = jnp.where(texed[..., None], tex_fac, mf["albedo"])
-    medium = jnp.where(
-        inside[..., None], jnp.exp(mf["absorption"] * (-t)[..., None]), 1.0
-    )
-    refl = mf["reflectivity"]
-    refr = mf["refractivity"]
-    diff = 1.0 - (refl + refr)
-
-    def sky_fn(m, w_, dd):
-        return jnp.where(m[..., None], w_, 0.0) * query.sky_color(scene, dd)
-
-    contrib = _chunked_contrib(sky_fn, wf["miss"], (wf["miss"], weight, d), chunks)
-    contrib = jnp.where(wf["lit"][..., None], weight * scene.light_color, contrib)
-    irradiance = scene.light_color * wf["irr_scale"][..., None]
-    local = diff[..., None] * (albedo * constants.INVPI) * (irradiance + AMBIENT)
-    do_diffuse = wf["surf"] & (diff > 0.0)
-    contrib = jnp.where(
-        do_diffuse[..., None], contrib + weight * medium * local, contrib
-    )
-    stats = dict(traversed=wf["traversed"], tested=wf["tested"])
-    if not emit_children:
-        return pixel, contrib, None, stats
-
-    is_mirror = wf["surf"] & (refl > 0.0)
-    fr = wf["fr"]
-    w1 = jnp.where(
-        is_mirror[..., None],
-        weight * medium * refl[..., None] * albedo,
-        weight * medium * albedo * fr[..., None],
-    )
-    children = dict(
-        emit1=wf["emit1"],
-        o1=point + wf["r_dir"] * EPS,
-        d1=wf["r_dir"],
-        w1=w1,
-        emit2=wf["emit2"],
-        o2=point + wf["t_dir"] * EPS,
-        d2=wf["t_dir"],
-        w2=weight * medium * albedo * (1.0 - fr)[..., None],
-        inside2=~inside,
-    )
-    return pixel, contrib, children, stats
-
-
 def _compact_children(children, pixel, cap: int):
     """Prefix-sum scatter of up to two children per ray into a fresh level
     buffer of capacity `cap`.  Returns (o, d, inside, weight, pixel, alive,
     dropped_count).
 
     All per-child fields ride ONE packed [*, 11] record (ints bitcast to
-    f32), so the compaction costs two scatters instead of ten — TPU scatters
-    cost ~per-index regardless of lane count."""
+    f32), so the compaction costs two scatters instead of ten."""
     bc = jax.lax.bitcast_convert_type
     e1 = children["emit1"]
     e2 = children["emit2"]
@@ -223,8 +135,7 @@ def _compact_children(children, pixel, cap: int):
     total1 = n1[-1]
     # non-emitting slots get UNIQUE out-of-bounds positions (cap + src, all
     # distinct) rather than a shared `cap`: every position is then unique,
-    # which admits XLA's fast unique-indices scatter lowering — the shared
-    # dead index forced the serialized scatter (~60ms per 655k rows vs ~8ms)
+    # which admits XLA's unique-indices scatter lowering
     pos1 = jnp.where(e1, n1 - 1, cap + src)
     n2 = jnp.cumsum(e2.astype(jnp.int32))
     pos2 = jnp.where(e2, total1 + n2 - 1, cap + src)
@@ -246,16 +157,15 @@ def _compact_children(children, pixel, cap: int):
         axis=1,
     )
     # dead-slot defaults: o = w = 0, d = 1 (finite reciprocals in the
-    # kernel), pix = 0, inside = 0
+    # traversal), pix = 0, inside = 0
     base = jnp.zeros((cap, 11), jnp.float32).at[:, 3:6].set(1.0)
 
     def compact(_):
         # apply the prefix-sum permutation as a GATHER through its 1-D
-        # inverse: multi-lane [R, 11] scatters at these widths sit on the
-        # measured TPU scatter cliff (~54 ms each at R=921600; the whole
-        # config-2 frame was 442 ms), while a rank-1 inverse scatter + one
-        # [cap, 11] row gather costs ~15 ms.  slot_src[k] = source row (in
-        # the stacked rec1|rec2) whose child lands in slot k; -1 = dead.
+        # inverse: a rank-1 inverse scatter + one [cap, 11] row gather in
+        # place of two multi-lane [R, 11] scatters.  slot_src[k] = source
+        # row (in the stacked rec1|rec2) whose child lands in slot k;
+        # -1 = dead.
         r = src.shape[0]
         slot_src = (
             jnp.full((cap,), -1, jnp.int32)
@@ -302,7 +212,7 @@ def render(
     # practice (only mirror/dielectric hits emit children), and every
     # per-level cost — traversal, shadow any-hit, shading, sky gather —
     # scales with the STATIC buffer width, so fixed full-size levels paid
-    # ~5x the live work (VERDICT #3).  Correctness is unaffected: overflow
+    # several times the live work.  Correctness is unaffected: overflow
     # at any level is counted and render_adaptive grows cap_factor
     # (grow-or-fail), so dielectric-heavy scenes that really do double per
     # level still render unbiased.
@@ -321,19 +231,12 @@ def render(
     pixel0 = jnp.arange(n, dtype=jnp.int32)
     alive0 = jnp.ones((n,), jnp.bool_)
     w0 = jnp.ones((n, 3), jnp.float32)
-    use_kernel = _use_kernel_level0(scene, differentiable)
-    if use_kernel:
-        pix, contrib, children, stats0 = _shade_level_kernel(
-            scene, rays.o, rays.d, rays.inside, w0, pixel0,
-            emit_children=depth_limit >= 1,
-        )
-    else:
-        pix, contrib, children, stats0 = _shade_level(
-            scene, rays.o, rays.d, rays.inside, w0, pixel0, alive0,
-            emit_children=depth_limit >= 1, differentiable=differentiable,
-        )
+    pix, contrib, children, stats0 = _shade_level(
+        scene, rays.o, rays.d, rays.inside, w0, pixel0, alive0,
+        emit_children=depth_limit >= 1, differentiable=differentiable,
+    )
     # level 0's pixel ids are the identity, so the film scatter is a plain
-    # add (a [n,3] scatter-add costs ~10ms at 655k rows; the add is free)
+    # add
     film = film + contrib
     dropped = jnp.zeros((), jnp.int32)
 
@@ -348,21 +251,12 @@ def render(
             when no children were emitted — in mostly-diffuse scenes the
             primary level emits none and the frame costs one level."""
             film, dropped, o, d, inside, w, pixv, alive = carry
-            if use_kernel:
-                # in-kernel alive masking already zeroes dead lanes' flags;
-                # the shared `contrib = where(alive, ...)` below re-masks
-                pix, contrib, children, _ = _shade_level_kernel(
-                    scene, o, d, inside, w, pixv, emit_children=emit,
-                    alive=alive,
-                )
-            else:
-                pix, contrib, children, _ = _shade_level(
-                    scene, o, d, inside, w, pixv, alive, emit_children=emit,
-                    differentiable=differentiable,
-                )
-            # flat rank-1 scatter-add: the multi-lane [n, 3] add at
-            # colliding pixel ids measured 42 ms per level at n=921600;
-            # the 1-D 3n-index form runs on the fast scatter path
+            pix, contrib, children, _ = _shade_level(
+                scene, o, d, inside, w, pixv, alive, emit_children=emit,
+                differentiable=differentiable,
+            )
+            # flat rank-1 scatter-add in place of a multi-lane [n, 3] add
+            # at colliding pixel ids
             contrib = jnp.where(alive[..., None], contrib, 0.0)
             fi = pix[:, None] * 3 + jnp.arange(3, dtype=pix.dtype)[None, :]
             film = (

@@ -2,7 +2,7 @@
 (BLASBVH::SetTransform blas_bvh.cpp:363-374, BVH::Refit bvh.cpp:26-43,
 BaseScene::SetTime).
 
-On the TPU the scene is immutable device data, so "mutating" a transform
+On the device the scene is immutable data, so "mutating" a transform
 means re-baking on host and shipping fresh arrays.  With the native C++
 builder a full rebuild of a 10k-triangle scene takes ~10ms — on these scene
 sizes rebuild IS the refit story; `refit` (topology-preserving bounds sweep)

@@ -1,6 +1,6 @@
 """Host-side scene compiler: XML spec -> DeviceScene.
 
-This is the TPU replacement for the whole reference `Init()` stack
+This is the device-side replacement for the whole reference `Init()` stack
 (SURVEY.md §3.1): it parses the XML, loads models/textures, transforms
 geometry, builds acceleration structures and emits flat device arrays.  It
 runs once per scene (and per transform change), so it lives in numpy.
@@ -14,7 +14,7 @@ Two layouts, mirroring the reference's two XML scene classes:
   `FastInvertedTransformNoScale` misuse, model.cpp:57 + :70-72).
 * `layout="tlas"` — TLASFileScene (infra/scene/tlas_file_scene.cpp): one BLAS
   per object (scale baked into verts, rigid T separate), TLAS on top.
-  TPU-native twist: BLAS triangles and node AABBs are baked to WORLD space
+  Twist for batched traversal: BLAS triangles and node AABBs are baked to WORLD space
   (conservative 8-corner AABB transform), and TLAS interior nodes + all BLAS
   nodes are fused into one threaded node forest.  Traversal then needs no
   per-ray transform or mode switch — one cursor, one link table.  The cost is
@@ -78,7 +78,6 @@ def compile_scene(
     bilinear: bool = False,
     force_split_cap: int | None = 4,
     shadow_quirk: bool = True,
-    use_pallas: bool | None = None,
     leaf_target: int | None = None,
     instancing: str = "baked",
 ) -> tuple[DeviceScene, SceneInfo]:
@@ -86,7 +85,7 @@ def compile_scene(
     `accel` picks the structure (USE_BVH / USE_Grid / USE_KDTree).  For
     layout="tlas" with grid/kdtree, one grid/KD tree is built per instance
     over its world-baked triangles and traversal chains the instances with a
-    shared running t — the TPU equivalent of the reference's TLASGrid /
+    shared running t — the batched equivalent of the reference's TLASGrid /
     TLASKDTree (infra/tlas_grid.cpp:17-111, infra/tlas_kdtree.cpp:17-111,
     byte-identical clones of TLASBVH over different BLAS types).
 
@@ -96,19 +95,6 @@ def compile_scene(
     mesh and transforms rays per instance at query time — the reference's
     BLASBVH object-space semantics (blas_bvh.cpp:376-389) with O(1)
     SetTransform and N instances sharing one BLAS's memory."""
-    import jax
-
-    if use_pallas is None:
-        # the packet kernel is compiled for real TPUs; CPU runs use the
-        # pure-XLA traversal (the kernel still works there via interpret)
-        use_pallas = jax.default_backend() == "tpu"
-    if parity:
-        use_pallas = False  # keep the reference-exact code path
-    if leaf_target is None and use_pallas:
-        import os as _os
-
-        # default: one packed triangle row per leaf; sweepable via env
-        leaf_target = int(_os.environ.get("CRT_LEAF_TARGET", "24"))
     if spec is None:
         spec = load_scene_xml(xml_path)
     xml_dir = spec.xml_dir
@@ -163,7 +149,7 @@ def compile_scene(
                 "instancing='shared' requires layout='tlas' and accel='bvh'"
             )
         pool, bvh, shared, info = _build_shared_instances(
-            spec, get_mesh, force_split_cap, leaf_target, use_pallas
+            spec, get_mesh, force_split_cap, leaf_target
         )
         light_t = vm.mat_translate(tuple(spec.light_pos))
         light_inv_t = vm.mat_inverted_no_scale(light_t)
@@ -182,7 +168,6 @@ def compile_scene(
             bilinear=bilinear,
             shadow_quirk=shadow_quirk,
             shared=shared,
-            use_pallas=use_pallas and shared.packs is not None,
         )
         return scene, info
 
@@ -224,18 +209,11 @@ def compile_scene(
     # ---- acceleration structure ----------------------------------------
     grid_arr = None
     kd_arr = None
-    host_pack = None
     if layout == "mono":
         host, idx, stats = bvh_builder.build_bvh(
             all_v, force_split_cap=force_split_cap, leaf_target=leaf_target
         )
         hit, miss = bvh_builder.thread_links(host.left, host.right, host.tri_count, host.axis)
-        host_pack = dict(
-            node_min=host.node_min, node_max=host.node_max,
-            left_first=host.left_first, tri_count=host.tri_count,
-            left=host.left, right=host.right, axis=host.axis,
-            tri_indices=idx, hit=hit, miss=miss, root=0,
-        )
         bvh = BVHArrays(
             node_min=to_device_f32(host.node_min),
             node_max=to_device_f32(host.node_max),
@@ -259,16 +237,14 @@ def compile_scene(
             ghost, gstats = grid_builder.build_grid(all_v)
             grid_arr = grid_builder.to_device(ghost)
             info.build_stats = gstats
-            cell_hosts = [ghost]
         elif accel == "kdtree":
             from cpu_ray_tracer_tpu.accel import kdtree_builder
 
             khost, kstats = kdtree_builder.build_kdtree(all_v)
             kd_arr = kdtree_builder.to_device(khost)
             info.build_stats = kstats
-            cell_hosts = [khost]
     else:
-        bvh, stats, blas_stats, host_pack = _build_unified_tlas(
+        bvh, stats, blas_stats = _build_unified_tlas(
             inst_v, force_split_cap, leaf_target
         )
         info = SceneInfo(
@@ -281,163 +257,27 @@ def compile_scene(
         if accel == "grid":
             from cpu_ray_tracer_tpu.accel import grid_builder
 
-            grids, tri_base, cell_hosts = [], 0, []
+            grids, tri_base = [], 0
             for v in inst_v:
                 ghost, gstats = grid_builder.build_grid(v)
                 ghost["cell_tris"] = ghost["cell_tris"] + tri_base
                 grids.append(grid_builder.to_device(ghost))
-                cell_hosts.append(ghost)
                 tri_base += v.shape[0]
             grid_arr = tuple(grids)
         elif accel == "kdtree":
             from cpu_ray_tracer_tpu.accel import kdtree_builder
 
-            kds, tri_base, cell_hosts = [], 0, []
+            kds, tri_base = [], 0
             for v in inst_v:
                 khost, kstats = kdtree_builder.build_kdtree(v)
                 khost["tri_ids"] = khost["tri_ids"] + tri_base
                 kds.append(kdtree_builder.to_device(khost))
-                cell_hosts.append(khost)
                 tri_base += v.shape[0]
             kd_arr = tuple(kds)
 
     # ---- light / floor ---------------------------------------------------
     light_t = vm.mat_translate(tuple(spec.light_pos))
     light_inv_t = vm.mat_inverted_no_scale(light_t)
-
-    packed = None
-    packed_wide = None
-    if use_pallas and accel in ("grid", "kdtree"):
-        # compile the grid / KD structure into the packet kernel's threaded
-        # format (accel/cell_tree.py) — same build semantics, one kernel
-        from cpu_ray_tracer_tpu.accel import cell_tree
-
-        budget = max(8192 // len(cell_hosts), 512)  # merged-forest node cap
-        if accel == "grid":
-            trees = [cell_tree.tree_from_grid(h, max_nodes=budget) for h in cell_hosts]
-        else:
-            tri_bb = np.stack([all_v.min(axis=1), all_v.max(axis=1)], axis=1)
-            for h in cell_hosts:
-                h["tri_bounds"] = tri_bb  # ids are global: one shared table
-            trees = [cell_tree.tree_from_kd(h, max_nodes=budget) for h in cell_hosts]
-        if len(trees) > 1:
-            tree, roots = cell_tree.merge_trees(trees)
-        else:
-            tree, roots = trees[0], None
-        v0h = all_v[:, 0]
-        packed = cell_tree.pack_tree(
-            tree, v0h, all_v[:, 1] - v0h, all_v[:, 2] - v0h,
-            obj_id=np.concatenate(inst_obj, axis=0),
-            mat_id=np.concatenate(inst_mat, axis=0),
-            roots=roots,
-        )
-    if use_pallas and accel == "bvh" and host_pack is not None:
-        from cpu_ray_tracer_tpu.accel import pack as pack_mod
-
-        v0h = all_v[:, 0]
-        # in-kernel attribute interpolation: measured net-negative on v5e
-        # (extra leaf-test vector work + 6 more while carries outweigh the
-        # saved post-traversal gather) — keep available for other topologies
-        import os as _os
-
-        all_n = np.concatenate(inst_n, axis=0).astype(np.float32)
-        all_uv = np.concatenate(inst_uv, axis=0).astype(np.float32)
-        mat_arr = np.concatenate(inst_mat, axis=0)
-        # fill degenerate vertex normals with geometric ones (matches
-        # make_triangle_pool)
-        gn = np.cross(all_v[:, 1] - v0h, all_v[:, 2] - v0h)
-        gn = gn / np.maximum(np.linalg.norm(gn, axis=-1, keepdims=True), 1e-20)
-        bad = np.linalg.norm(all_n, axis=-1) < 1e-8
-        all_n = np.where(bad[..., None], gn[:, None, :], all_n)
-        shade16 = np.zeros((all_v.shape[0], 16), np.float32)
-        shade16[:, 0:3] = all_n[:, 0]
-        shade16[:, 3:6] = all_n[:, 1]
-        shade16[:, 6:9] = all_n[:, 2]
-        shade16[:, 9:11] = all_uv[:, 0]
-        shade16[:, 11:13] = all_uv[:, 1]
-        shade16[:, 13:15] = all_uv[:, 2]
-        shade16[:, 15] = mat_arr.astype(np.float32)
-        # shade16 is ALWAYS packed: the slot-indexed shading rows carry the
-        # bitcast meta word in lane 15, so traverse() recovers hit ids AND
-        # the shading record in one gather.  Whether the KERNEL also
-        # interpolates attributes in-registers is a separate (env) switch —
-        # that one measured net-negative (carry pressure).
-        packed = pack_mod.pack_host(
-            host_pack["node_min"], host_pack["node_max"],
-            host_pack["left_first"], host_pack["tri_count"],
-            host_pack["tri_indices"], v0h, all_v[:, 1] - v0h, all_v[:, 2] - v0h,
-            host_pack["hit"], host_pack["miss"], host_pack["root"],
-            obj_id=np.concatenate(inst_obj, axis=0),
-            mat_id=mat_arr,
-            shade16=shade16,
-        )
-        # per-octant (near, far) child table for the SMEM-stack ordered
-        # two-child descent kernel (CRT_STACK=1, ops/pallas/packet_bvh.py)
-        packed = pack_mod.attach_stack_tables(
-            packed, host_pack["left"], host_pack["right"], host_pack["axis"]
-        )
-        # Wide kernel selection (CRT_WIDE: "auto" default / "1" force /
-        # "0" off).  On scenes whose BINARY node tables fit SMEM it measures
-        # within ~3% of the binary stack walk (kernel_speed.py: 107.8 vs
-        # 111.2 M primary) — 3.4x fewer steps but the same leaf-row-bound
-        # total — so "auto" keeps the binary walk there.  Its 256 B/wide
-        # node (~32 B/tri) is ~3x the binary tables' density, so "auto"
-        # picks it exactly when the binary tables OVERFLOW the SMEM budget:
-        # measured on the 49.5k-tri uniform_distributed scene (6,635 binary
-        # nodes = 637 KB > 480 KB), the wide walk cuts steps/ray 6x and the
-        # full pass 467 -> 341 ms (1.97 -> 2.70 Mrays/s).  The r1-r3
-        # sublane-wide experiment (8 tris on sublanes) measured strictly
-        # worse and was removed in r4 (docs/ROOFLINE.md history).
-        # "bounce" builds the wide tables ALONGSIDE the binary ones: the
-        # wavefront primary kernel keeps the binary walk (it measured
-        # within 3% and its shade interpolation is binary-table code),
-        # while host traversals — the locus-sorted BOUNCE depths, where
-        # unions are 10x primary (r5: d1 traverse = 30 of the 33 ms scan)
-        # — take the wide walk's 3.4x-fewer-steps descent.
-        wide_mode = _os.environ.get("CRT_WIDE", "auto")
-        from cpu_ray_tracer_tpu.ops.pallas.packet_bvh import SMEM_BUDGET as _SMEM
-        binary_overflows = packed.num_nodes * 96 > _SMEM
-        if wide_mode in ("1", "bounce") or (wide_mode == "auto" and binary_overflows):
-            from cpu_ray_tracer_tpu.accel import wide as wide_mod
-
-            try:
-                # same fused ids+shade record as the binary pack: lane 15 of
-                # the shading row carries the bitcast meta word when the ids
-                # fit (tri 20 / obj 6 / mat 5 bits — see pack.make_slot_meta)
-                obj_arr = np.concatenate(inst_obj, axis=0)
-                n_tris_w = v0h.shape[0]
-                ids_ok = (
-                    n_tris_w < (1 << 20)
-                    and obj_arr.max(initial=0) < (1 << 6)
-                    and mat_arr.max(initial=0) < (1 << 5)
-                )
-                shade16w = shade16
-                if ids_ok:
-                    tri_meta = (
-                        np.arange(n_tris_w, dtype=np.int32)
-                        | (obj_arr.astype(np.int32) << 20)
-                        | (mat_arr.astype(np.int32) << 26)
-                    )
-                    shade16w = np.ascontiguousarray(shade16, np.float32).copy()
-                    shade16w.view(np.int32)[:, 15] = tri_meta
-                packed_wide = wide_mod.pack_wide_host(
-                    host_pack["node_min"], host_pack["node_max"],
-                    host_pack["left"], host_pack["right"],
-                    host_pack["left_first"], host_pack["tri_count"],
-                    host_pack["tri_indices"],
-                    v0h, all_v[:, 1] - v0h, all_v[:, 2] - v0h,
-                    host_pack["root"],
-                    obj_id=obj_arr,
-                    mat_id=mat_arr,
-                    shade16=shade16w,
-                ).replace(meta_in_shade=ids_ok)
-                # SMEM node tables: 48 aabb f32 + 8 meta i32 + 8 order i32
-                # per wide node = 256 B; past the budget fall back to the
-                # binary packet kernel rather than risk a Mosaic OOM
-                if packed_wide.num_wide * 256 > 400 * 1024:
-                    packed_wide = None
-            except ValueError:
-                packed_wide = None  # field-width overflow: binary fallback
 
     scene = DeviceScene(
         tris=pool,
@@ -455,9 +295,6 @@ def compile_scene(
         shadow_quirk=shadow_quirk,
         grid=grid_arr,
         kd=kd_arr,
-        packed=packed,
-        packed_wide=packed_wide,
-        use_pallas=use_pallas and packed is not None,
     )
     return scene, info
 
@@ -474,7 +311,7 @@ def instance_matrices(obj):
     return m, minv, nrm
 
 
-def _build_shared_instances(spec, get_mesh, force_split_cap, leaf_target, use_pallas):
+def _build_shared_instances(spec, get_mesh, force_split_cap, leaf_target):
     """One object-space BLAS per UNIQUE mesh + per-instance transform
     tables (see SharedInstances docstring, scene/types.py)."""
     from cpu_ray_tracer_tpu.scene.types import SharedInstances
@@ -517,11 +354,8 @@ def _build_shared_instances(spec, get_mesh, force_split_cap, leaf_target, use_pa
     )
     pool_mat = np.zeros(all_v.shape[0], np.int32)
     pool = make_triangle_pool(all_v, all_n, all_uv, pool_obj, pool_mat)
-    v0h = all_v[:, 0]
-    e1h = all_v[:, 1] - v0h
-    e2h = all_v[:, 2] - v0h
 
-    bvhs, packs = [], []
+    bvhs = []
     for s in range(n_mesh):
         host, idx = hosts[s], idxs[s] + tri_bases[s]
         hit, miss = bvh_builder.thread_links(
@@ -540,18 +374,6 @@ def _build_shared_instances(spec, get_mesh, force_split_cap, leaf_target, use_pa
                 max_depth=stats_all[s].max_depth,
             )
         )
-        if use_pallas:
-            from cpu_ray_tracer_tpu.accel import pack as pack_mod
-
-            packs.append(
-                pack_mod.attach_stack_tables(
-                    pack_mod.pack_host(
-                        host.node_min, host.node_max, host.left_first,
-                        host.tri_count, idx, v0h, e1h, e2h, hit, miss, 0,
-                    ),
-                    host.left, host.right, host.axis,
-                )
-            )
 
     # --- per-instance tables --------------------------------------------
     n_inst = len(spec.objects)
@@ -584,7 +406,6 @@ def _build_shared_instances(spec, get_mesh, force_split_cap, leaf_target, use_pa
             (tuple(float(x) for x in h.node_min[0]), tuple(float(x) for x in h.node_max[0]))
             for h in hosts
         ),
-        packs=tuple(packs) if packs else None,
         bvhs=tuple(bvhs),
     )
     total_tris = sum(mesh_v[inst_mesh[i]].shape[0] for i in range(n_inst))
@@ -670,11 +491,6 @@ def _build_unified_tlas(inst_v: list[np.ndarray], force_split_cap, leaf_target=N
 
     root = map_child(tlas.root)
     hit, miss = bvh_builder.thread_links(left, right, tri_count, axis, roots=[root])
-    host_pack = dict(
-        node_min=node_min, node_max=node_max, left_first=left_first,
-        tri_count=tri_count, left=left, right=right, axis=axis,
-        tri_indices=all_idx, hit=hit, miss=miss, root=root,
-    )
 
     max_leaf = max(s.max_leaf for s in blas_stats)
     max_depth = (1 + int(np.ceil(np.log2(max(n_inst, 2))))) + max(
@@ -699,4 +515,4 @@ def _build_unified_tlas(inst_v: list[np.ndarray], force_split_cap, leaf_target=N
         max_depth=max_depth,
         root=root,
     )
-    return bvh, tlas_stats, blas_stats, host_pack
+    return bvh, tlas_stats, blas_stats

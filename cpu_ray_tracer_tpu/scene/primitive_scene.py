@@ -18,14 +18,14 @@ import os
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+
+from cpu_ray_tracer_tpu.utils import struct
 
 from cpu_ray_tracer_tpu.core import vecmath as vm
 from cpu_ray_tracer_tpu.core.materials import MaterialTable, make_table
 from cpu_ray_tracer_tpu.core.textures import TextureAtlas, build_atlas
 from cpu_ray_tracer_tpu.io.image import load_texture_image
-
-REF_ASSETS = os.environ.get("CRT_UPSTREAM_ASSETS", "/root/reference/assets")
+from cpu_ray_tracer_tpu.io.scene_xml import UPSTREAM_ASSETS
 
 
 @struct.dataclass
@@ -87,8 +87,8 @@ def compile_primitive_scene(anim_time: float = 0.0) -> PrimScene:
 
     # wall textures (the reference's Plane::GetAlbedo Surface loads)
     def tex(name):
-        path = os.path.join(REF_ASSETS, name)
-        if os.path.isfile(path):
+        path = os.path.join(UPSTREAM_ASSETS, name)
+        if UPSTREAM_ASSETS and os.path.isfile(path):
             return load_texture_image(path)
         return np.full((4, 4, 3), 0.93, np.float32)
 
@@ -145,7 +145,7 @@ def compile_primitive_scene(anim_time: float = 0.0) -> PrimScene:
 # ---------------------------------------------------------------------------
 
 
-def find_nearest(scene: PrimScene, o, d, t0=None, mask=None, sort_rays=False):
+def find_nearest(scene: PrimScene, o, d, t0=None, mask=None):
     from cpu_ray_tracer_tpu import constants
     from cpu_ray_tracer_tpu.ops import intersect, primitives as prim
 

@@ -13,12 +13,38 @@ from cpu_ray_tracer_tpu import constants
 from cpu_ray_tracer_tpu.core import materials as mat_mod
 from cpu_ray_tracer_tpu.core import textures as tex_mod
 from cpu_ray_tracer_tpu.core import vecmath as vm
-from cpu_ray_tracer_tpu.ops import forest, intersect, traverse_bvh, traverse_grid, traverse_kd
+from cpu_ray_tracer_tpu.ops import bvh_kernel, forest, intersect, traverse_bvh, traverse_grid, traverse_kd
 from cpu_ray_tracer_tpu.scene.types import DeviceScene
 from cpu_ray_tracer_tpu.scene import primitive_scene as prim_scene
 
 FLOOR_NORMAL = np.array([0.0, 1.0, 0.0], np.float32)
 FLOOR_D = np.float32(1.0)
+
+
+def walk_bvh(scene, bvh, tris, o, d, t0, any_hit: bool = False, mask=None):
+    """Walk one threaded BVH: the single place that chooses the traversal
+    implementation.  Where the program is lowered for a GPU it runs the
+    CUDA kernel (ops/bvh_kernel.py), everywhere else the XLA walk
+    (ops/traverse_bvh.py), which is also the reference the kernel is tested
+    against; `scene.traversal == "xla"` pins the XLA walk on every platform.
+    Rays outside `mask` get t0 = -1, so they report no hit.
+
+    Both walks run detached: visibility is discrete, and gradients reach t
+    and the barycentrics through find_nearest_diff's recomputation."""
+    o, d, t0, bvh, tris = jax.lax.stop_gradient((o, d, t0, bvh, tris))
+    if mask is not None:
+        t0 = jnp.where(mask, t0, np.float32(-1.0))
+
+    def xla(o, d, t0):
+        return traverse_bvh.traverse(bvh, tris, o, d, t0, any_hit=any_hit)
+
+    if getattr(scene, "traversal", "auto") == "xla":
+        return xla(o, d, t0)
+
+    def kernel(o, d, t0):
+        return bvh_kernel.traverse(bvh, tris, o, d, t0, any_hit=any_hit)
+
+    return jax.lax.platform_dependent(o, d, t0, cuda=kernel, default=xla)
 
 
 def _traverse_instanced(scene: DeviceScene, o, d, t, any_hit: bool = False, mask=None):
@@ -28,15 +54,11 @@ def _traverse_instanced(scene: DeviceScene, o, d, t, any_hit: bool = False, mask
     reference's BLASBVH::Intersect semantics (blas_bvh.cpp:376-389)
     vectorized over the whole batch.  Direction vectors are NOT
     renormalized, so t is identical in object and world space."""
-    import jax as _jax
-
     sh = scene.shared
     r = o.shape[0]
     if mask is None:
         mask = jnp.ones((r,), jnp.bool_)
-    use_pk = scene.use_pallas and sh.packs is not None
-    interpret = _jax.default_backend() != "tpu"
-    from cpu_ray_tracer_tpu.ops.pallas import packet_bvh
+    hp = jax.lax.Precision.HIGHEST
 
     best_t = t
     tri = jnp.full((r,), -1, jnp.int32)
@@ -49,8 +71,8 @@ def _traverse_instanced(scene: DeviceScene, o, d, t, any_hit: bool = False, mask
     rd = 1.0 / jnp.where(jnp.abs(d) < np.float32(1e-30), np.float32(1e-30), d)
     for i, ms in enumerate(sh.inst_mesh):
         mi = sh.inst_minv[i]
-        o_i = o @ mi[:3, :3].T + mi[:3, 3]
-        d_i = d @ mi[:3, :3].T
+        o_i = jnp.matmul(o, mi[:3, :3].T, precision=hp) + mi[:3, 3]
+        d_i = jnp.matmul(d, mi[:3, :3].T, precision=hp)
         # world-AABB early-out vs the running best t (the TLAS role)
         t1 = (sh.inst_aabb_min[i] - o) * rd
         t2 = (sh.inst_aabb_max[i] - o) * rd
@@ -59,18 +81,7 @@ def _traverse_instanced(scene: DeviceScene, o, d, t, any_hit: bool = False, mask
         live = mask & (tf >= tn) & (tf > 0) & (tn < best_t)
         if any_hit:
             live = live & ~occ
-        if use_pk:
-            res = packet_bvh.traverse(
-                sh.packs[ms], scene.tris, o_i, d_i, best_t,
-                mask=live, any_hit=any_hit, interpret=interpret,
-            )
-        else:
-            # no mask arg on the XLA path: dead rays get t0 = -1, which
-            # fails the root slab test immediately
-            res = traverse_bvh.traverse(
-                sh.bvhs[ms], scene.tris, o_i, d_i,
-                jnp.where(live, best_t, np.float32(-1.0)), any_hit=any_hit,
-            )
+        res = walk_bvh(scene, sh.bvhs[ms], scene.tris, o_i, d_i, best_t, any_hit=any_hit, mask=live)
         hit_i = res["tri_idx"] >= 0
         best_t = jnp.where(hit_i, res["t"], best_t)
         tri = jnp.where(hit_i, res["tri_idx"], tri)
@@ -87,64 +98,33 @@ def _traverse_instanced(scene: DeviceScene, o, d, t, any_hit: bool = False, mask
     )
 
 
-def _traverse_accel(scene: DeviceScene, o, d, t, any_hit: bool = False, mask=None, sort_rays: bool = False):
+def _traverse_accel(scene: DeviceScene, o, d, t, any_hit: bool = False, mask=None):
     """Dispatch on the scene's accelerator kind — the data-driven analog of
     the reference's USE_BVH/USE_Grid/USE_KDTree defines (file_scene.h:10-12);
     every accelerator answers the same query contract."""
     if scene.shared is not None:
-        if sort_rays:
-            from cpu_ray_tracer_tpu.ops.pallas import packet_bvh
-
-            def fn(pk, tris, o_, d_, t0_, mask=None, any_hit=False, interpret=False):
-                return _traverse_instanced(scene, o_, d_, t0_, any_hit=any_hit, mask=mask)
-
-            return packet_bvh.traverse_sorted(
-                scene.shared, scene.tris, o, d, t,
-                mask=mask, any_hit=any_hit, traverse_fn=fn,
-            )
         return _traverse_instanced(scene, o, d, t, any_hit=any_hit, mask=mask)
-    if scene.accel_kind == "grid" and not (scene.use_pallas and scene.packed is not None):
+    if scene.accel_kind == "grid":
         if isinstance(scene.grid, (tuple, list)):  # tlas layout: BLAS forest
             return forest.traverse_forest(
                 traverse_grid.traverse, scene.grid, scene.tris, o, d, t, any_hit=any_hit
             )
         return traverse_grid.traverse(scene.grid, scene.tris, o, d, t, any_hit=any_hit)
-    if scene.accel_kind == "kdtree" and not (scene.use_pallas and scene.packed is not None):
+    if scene.accel_kind == "kdtree":
         if isinstance(scene.kd, (tuple, list)):
             return forest.traverse_forest(
                 traverse_kd.traverse, scene.kd, scene.tris, o, d, t, any_hit=any_hit
             )
         return traverse_kd.traverse(scene.kd, scene.tris, o, d, t, any_hit=any_hit)
-    # grid / kdtree with use_pallas fall through: their structures are
-    # compiled into the packet kernel's threaded format (accel/cell_tree.py)
-    # and scene.packed carries the result — one kernel, three accelerators.
-    if scene.use_pallas and scene.packed_wide is not None:
-        from cpu_ray_tracer_tpu.ops.pallas import wide_bvh
-
-        interpret = jax.default_backend() != "tpu"
-        fn = wide_bvh.traverse_sorted if sort_rays else wide_bvh.traverse
-        return fn(
-            scene.packed_wide, scene.tris, o, d, t,
-            mask=mask, any_hit=any_hit, interpret=interpret,
-        )
-    if scene.use_pallas and scene.packed is not None:
-        from cpu_ray_tracer_tpu.ops.pallas import packet_bvh
-
-        interpret = jax.default_backend() != "tpu"
-        fn = packet_bvh.traverse_sorted if sort_rays else packet_bvh.traverse
-        return fn(
-            scene.packed, scene.tris, o, d, t,
-            mask=mask, any_hit=any_hit, interpret=interpret,
-        )
-    return traverse_bvh.traverse(scene.bvh, scene.tris, o, d, t, any_hit=any_hit)
+    return walk_bvh(scene, scene.bvh, scene.tris, o, d, t, any_hit=any_hit, mask=mask)
 
 
-def find_nearest(scene: DeviceScene, o: jnp.ndarray, d: jnp.ndarray, t0=None, mask=None, sort_rays: bool = False):
+def find_nearest(scene: DeviceScene, o: jnp.ndarray, d: jnp.ndarray, t0=None, mask=None):
     """Nearest hit over light quad -> floor plane -> triangle accel, the same
     composition as FileScene::FindNearest (file_scene.cpp:170-175).
 
-    `mask` (optional [R] bool) marks live rays; dead lanes are skipped by the
-    packet kernel (and report no hit).
+    `mask` (optional [R] bool) marks live rays; on the BVH, dead lanes walk
+    with t0 = -1 and report no triangle hit.
 
     Returns dict(t, obj_idx, tri_idx, bary, traversed, tested).
     """
@@ -166,7 +146,7 @@ def find_nearest(scene: DeviceScene, o: jnp.ndarray, d: jnp.ndarray, t0=None, ma
         t = jnp.where(fhit, ft, t)
         obj = jnp.where(fhit, 1, obj)
 
-    res = _traverse_accel(scene, o, d, t, mask=mask, sort_rays=sort_rays)
+    res = _traverse_accel(scene, o, d, t, mask=mask)
     tri_hit = res["tri_idx"] >= 0
     out = dict(
         t=res["t"],
@@ -177,15 +157,10 @@ def find_nearest(scene: DeviceScene, o: jnp.ndarray, d: jnp.ndarray, t0=None, ma
         traversed=res["traversed"],
         tested=res["tested"],
     )
-    if "shade_normal" in res:  # in-kernel interpolated attributes
-        out["shade_normal"] = res["shade_normal"]
-        out["shade_uv"] = res["shade_uv"]
-    if "shade_rec" in res:  # fused ids+shading gather (see packet_bvh)
-        out["shade_rec"] = res["shade_rec"]
     return out
 
 
-def find_nearest_diff(scene: DeviceScene, o: jnp.ndarray, d: jnp.ndarray, t0=None, mask=None, sort_rays: bool = False):
+def find_nearest_diff(scene: DeviceScene, o: jnp.ndarray, d: jnp.ndarray, t0=None, mask=None):
     """Differentiable nearest-hit: traversal runs detached (discrete hit
     SELECTION carries no gradient — `lax.while_loop` is not reverse-mode
     differentiable and visibility is discontinuous anyway), then t and the
@@ -194,8 +169,7 @@ def find_nearest_diff(scene: DeviceScene, o: jnp.ndarray, d: jnp.ndarray, t0=Non
     light transform.  This is the classic detached-sampling formulation of
     differentiable rendering (non-silhouette gradients)."""
     hit = find_nearest(
-        scene, jax.lax.stop_gradient(o), jax.lax.stop_gradient(d), t0,
-        mask=mask, sort_rays=sort_rays,
+        scene, jax.lax.stop_gradient(o), jax.lax.stop_gradient(d), t0, mask=mask,
     )
     hit = {k: jax.lax.stop_gradient(v) for k, v in hit.items()}
     tri = hit["tri_idx"]
@@ -214,16 +188,15 @@ def find_nearest_diff(scene: DeviceScene, o: jnp.ndarray, d: jnp.ndarray, t0=Non
         mi = jnp.dot(
             oh, sh.inst_minv.reshape(n_i, 16), precision=jax.lax.Precision.HIGHEST
         ).reshape(-1, 4, 4)
-        o_mt = jnp.einsum("rij,rj->ri", mi[:, :3, :3], o) + mi[:, :3, 3]
-        d_mt = jnp.einsum("rij,rj->ri", mi[:, :3, :3], d)
+        hp = jax.lax.Precision.HIGHEST
+        o_mt = jnp.einsum("rij,rj->ri", mi[:, :3, :3], o, precision=hp) + mi[:, :3, 3]
+        d_mt = jnp.einsum("rij,rj->ri", mi[:, :3, :3], d, precision=hp)
     else:
         o_mt, d_mt = o, d
-    # plain row gathers: the default multi-lane scatter transpose is 12-22%
-    # faster end-to-end than the flat-cotangent variant (fwd+bwd A/B:
-    # nearest 4.53 vs 3.54, bilinear 1.94 vs 1.73 Mrays/s) and fits in HBM
-    # in both modes now that the bilinear tap records are deferred as 1-D
-    # arrays (render/pathtracer._TAP_KEYS; vm.gather_rows3 remains for
-    # gathers whose cotangents stack inside scans, e.g. the texel atlas).
+    # plain row gathers with the default scatter transpose (vm.gather_rows3
+    # is for gathers whose cotangents stack inside scans, e.g. the texel
+    # atlas; these do not, since the bilinear tap records are deferred as
+    # 1-D arrays — render/pathtracer._TAP_KEYS).
     v0 = scene.tris.v0[tid]
     e1 = scene.tris.e1[tid]
     e2 = scene.tris.e2[tid]
@@ -298,22 +271,7 @@ def get_hit_info(scene: DeviceScene, hit: dict, point: jnp.ndarray, d: jnp.ndarr
     obj = hit["obj_idx"]
     tri_hit = hit["tri_idx"] >= 0
 
-    if "shade_normal" in hit:
-        n_tri, uv_tri = hit["shade_normal"], hit["shade_uv"]
-    elif "shade_rec" in hit:
-        # shading record already gathered by traverse() (fused with the hit
-        # ids): interpolate in place, no per-ray gather here
-        rec = hit["shade_rec"]
-        bary = hit["bary"]
-        w = (1.0 - bary[..., 0] - bary[..., 1])[..., None]
-        bu = bary[..., 0:1]
-        bv = bary[..., 1:2]
-        n_tri = w * rec[..., 0:3] + bu * rec[..., 3:6] + bv * rec[..., 6:9]
-        uv_tri = w * rec[..., 9:11] + bu * rec[..., 11:13] + bv * rec[..., 13:15]
-        sq = jnp.sum(n_tri * n_tri, axis=-1, keepdims=True)
-        n_tri = n_tri * jax.lax.rsqrt(jnp.maximum(sq, np.float32(1e-20)))
-    else:
-        n_tri, uv_tri = traverse_bvh.interpolate_hit(scene.tris, hit["tri_idx"], hit["bary"])
+    n_tri, uv_tri = traverse_bvh.interpolate_hit(scene.tris, hit["tri_idx"], hit["bary"])
     if scene.shared is not None:
         # shared-BLAS mode: pool normals are OBJECT space; map to world with
         # the winning instance's inverse-transpose (one-hot matmul — the
@@ -325,7 +283,7 @@ def get_hit_info(scene: DeviceScene, hit: dict, point: jnp.ndarray, d: jnp.ndarr
         nm = jnp.dot(
             oh, sh.inst_nrm.reshape(n_i, 9), precision=jax.lax.Precision.HIGHEST
         ).reshape(-1, 3, 3)
-        n_w = jnp.einsum("rij,rj->ri", nm, n_tri)
+        n_w = jnp.einsum("rij,rj->ri", nm, n_tri, precision=jax.lax.Precision.HIGHEST)
         n_w = n_w / jnp.maximum(jnp.linalg.norm(n_w, axis=-1, keepdims=True), 1e-20)
         n_tri = jnp.where(tri_hit[..., None], n_w, n_tri)
     # light quad normal: TransformVector((0,-1,0), T) (primitives.h:365-369)
@@ -355,9 +313,7 @@ def get_hit_info(scene: DeviceScene, hit: dict, point: jnp.ndarray, d: jnp.ndarr
 
 def material_fields(scene, mat_id: jnp.ndarray):
     """All per-ray material scalars in ONE one-hot matmul against the (tiny)
-    material table — replaces five separate [mat_id] gathers (XLA TPU
-    gathers cost ~10ms each at 1M rays; a [R, M] @ [M, 10] matmul is
-    effectively free on the MXU)."""
+    material table — replaces five separate per-ray [mat_id] gathers."""
     m = scene.materials
     # texture-table columns ride the same matmul: per-material (offset,
     # width, height) joined from the atlas here (M-sized gathers, free)
@@ -385,9 +341,9 @@ def material_fields(scene, mat_id: jnp.ndarray):
         axis=1,
     )
     oh = jax.nn.one_hot(mat_id, m.count, dtype=jnp.float32)
-    # HIGHEST precision: the default TPU matmul rounds the f32 table through
-    # bf16, shifting reflectivity/refractivity lobe thresholds by ~0.4% vs
-    # the reference's exact values; the [R, M] @ [M, 13] matmul is tiny.
+    # HIGHEST precision: a reduced-precision matmul (bf16 or TF32) would
+    # round the f32 table, shifting reflectivity/refractivity lobe
+    # thresholds vs the reference's exact values; the matmul is tiny.
     f = jnp.dot(
         oh, table, preferred_element_type=jnp.float32,
         precision=jax.lax.Precision.HIGHEST,

@@ -26,7 +26,6 @@ class RenderConfig:
     # N instances share one BLAS — blas_bvh.cpp:376-389 semantics)
     instancing: str = "baked"
     parity: bool = False  # replicate all reference quirks bit-for-bit
-    use_pallas: str = "auto"  # "auto" (TPU only) | "true" | "false"
     shadow_quirk: bool = True
     bilinear: bool = False
     force_split_cap: int | None = 4  # None = reference SAH stopping exactly
@@ -67,9 +66,6 @@ class RenderConfig:
             bilinear=self.bilinear,
             force_split_cap=self.force_split_cap,
             shadow_quirk=self.shadow_quirk,
-            use_pallas=(
-                None if self.use_pallas == "auto" else self.use_pallas == "true"
-            ),
             instancing=self.instancing,
         )
 
@@ -97,7 +93,7 @@ def _add_args(parser: argparse.ArgumentParser):
 
 
 def parse_args(argv=None) -> RenderConfig:
-    parser = argparse.ArgumentParser(description="TPU-native ray tracer")
+    parser = argparse.ArgumentParser(description="Differentiable ray tracer in JAX")
     _add_args(parser)
     ns = parser.parse_args(argv)
     return RenderConfig(**{f.name: getattr(ns, f.name) for f in dataclasses.fields(RenderConfig)})

@@ -72,15 +72,19 @@ def runtime_flags() -> dict:
 
     Benchmark JSON must record what actually ran: the native C++ builder
     loads lazily with a silent numpy fallback (accel/native.py), SBVH is
-    env-gated, and the Pallas kernels read a family of CRT_* tuning flags —
-    a committed number is meaningless without them (VERDICT r3 weak #7).
+    env-gated, the CUDA BVH walk is built at first use, and the path tracer
+    reads a few CRT_* tuning flags — a recorded number is meaningless
+    without them.
     """
     import os
 
     from cpu_ray_tracer_tpu.accel import native
+    from cpu_ray_tracer_tpu.ops import bvh_kernel
 
     return {
         "native": native.get_lib() is not None,
+        "cuda_bvh_walk": bvh_kernel.build_info(),
         "sbvh": os.environ.get("CRT_SBVH", "0") == "1",
         "crt_env": {k: v for k, v in os.environ.items() if k.startswith("CRT_")},
+        "xla_flags": os.environ.get("XLA_FLAGS", ""),
     }

@@ -11,7 +11,7 @@ from cpu_ray_tracer_tpu.accel.compile import compile_bvh, make_triangle_pool
 from cpu_ray_tracer_tpu.io import obj as obj_mod
 from cpu_ray_tracer_tpu.ops import intersect, traverse_bvh
 
-from tests.conftest import REF_ASSETS
+from tests.conftest import OUR_ASSETS
 
 
 def random_tris(rng, n, spread=4.0):
@@ -66,7 +66,7 @@ class TestBuilder:
         assert stats.max_leaf == 1
 
     def test_bunny_build(self):
-        mesh = obj_mod.load_obj(os.path.join(REF_ASSETS, "bunny.obj"))
+        mesh = obj_mod.load_obj(os.path.join(OUR_ASSETS, "bunny.obj"))
         v, _, _ = mesh.triangles()
         host, idx, stats = bvh_builder.build_bvh(v)
         check_invariants(host, idx, mesh.num_tris)

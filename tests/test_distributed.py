@@ -72,7 +72,6 @@ class TestShardedRender:
         per_dev = n // mesh.devices.size
         seen = []
 
-        from jax.experimental.shard_map import shard_map
         from jax.sharding import PartitionSpec as P
 
         @jax.jit
@@ -80,7 +79,7 @@ class TestShardedRender:
             def f(x):
                 seen.append(x.shape)
                 return x
-            return shard_map(
+            return jax.shard_map(
                 f, mesh=mesh, in_specs=P("rays"), out_specs=P("rays")
             )(o)
 

@@ -110,42 +110,3 @@ class TestKDTree:
             np.asarray(near["tri_idx"]) >= 0, np.asarray(anyh["tri_idx"]) >= 0
         )
 
-
-class TestCellTreeBudget:
-    """VERDICT r2 ask #7: the cell-tree node budget (scene/build.py uses
-    max(8192//n_inst, 512)) must TRUNCATE by merging leaves coarser — never
-    by dropping cells/triangles — so a forcibly tiny budget still renders
-    the exact same hits."""
-
-    def test_budget_truncation_keeps_hits(self, rng):
-        from cpu_ray_tracer_tpu.accel import cell_tree
-        from cpu_ray_tracer_tpu.ops.pallas import packet_bvh
-
-        tri_np = random_tris(rng, 600, spread=3.0)
-        pool = make_triangle_pool(tri_np)
-        host, _ = grid_builder.build_grid(tri_np)
-        v0 = tri_np[:, 0]
-        e1 = tri_np[:, 1] - v0
-        e2 = tri_np[:, 2] - v0
-
-        free = cell_tree.tree_from_grid(host, max_nodes=None)
-        tiny = cell_tree.tree_from_grid(host, max_nodes=64)
-        # the budget actually engaged: the unconstrained tree is bigger,
-        # the constrained one respects the cap
-        assert free["left"].shape[0] > 64
-        assert tiny["left"].shape[0] <= 64
-        # leaves merged, never dropped: every triangle id survives
-        assert set(tiny["tri_indices"].tolist()) == set(range(600))
-
-        pk_free = cell_tree.pack_tree(free, v0, e1, e2)
-        pk_tiny = cell_tree.pack_tree(tiny, v0, e1, e2)
-        o, d = random_rays(rng, 512)
-        t0 = jnp.full((512,), 1e34, jnp.float32)
-        a = packet_bvh.traverse(pk_free, pool, o, d, t0, interpret=True)
-        b = packet_bvh.traverse(pk_tiny, pool, o, d, t0, interpret=True)
-        np.testing.assert_allclose(
-            np.asarray(a["t"]), np.asarray(b["t"]), rtol=1e-5, atol=1e-6
-        )
-        np.testing.assert_array_equal(
-            np.asarray(a["tri_idx"]), np.asarray(b["tri_idx"])
-        )

@@ -109,24 +109,6 @@ class TestSharedInstancing:
         diff = np.abs(img_a - img_b).max(axis=-1)
         assert (diff > 0.02).mean() < 0.01
 
-    def test_pallas_interpret_matches_xla(self):
-        spec = dup_spec(CUBE_XML, n_copies=2)
-        s_pk, _ = compile_scene(
-            spec=spec, layout="tlas", instancing="shared", use_pallas=True
-        )
-        s_xla, _ = compile_scene(
-            spec=spec, layout="tlas", instancing="shared", use_pallas=False
-        )
-        assert s_pk.shared.packs is not None
-        cam = cam_mod.make_camera(24, 16)
-        rays = cam_mod.full_frame_rays(cam)
-        a = query.find_nearest(s_pk, rays.o, rays.d)
-        b = query.find_nearest(s_xla, rays.o, rays.d)
-        np.testing.assert_allclose(
-            np.asarray(a["t"]), np.asarray(b["t"]), rtol=1e-5, atol=1e-5
-        )
-        assert (np.asarray(a["obj_idx"]) == np.asarray(b["obj_idx"])).all()
-
     def test_transform_update_is_o1_and_exact(self):
         spec = dup_spec(CUBE_XML)
         anim = AnimatedScene(spec=spec, layout="tlas", instancing="shared")

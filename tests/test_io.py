@@ -10,12 +10,12 @@ from cpu_ray_tracer_tpu.io import image as image_mod
 from cpu_ray_tracer_tpu.io import obj as obj_mod
 from cpu_ray_tracer_tpu.io import scene_xml as sx
 
-from tests.conftest import OUR_ASSETS, REF_ASSETS
+from tests.conftest import OUR_ASSETS, upstream_asset
 
 
 class TestObj:
     def test_cube_triangulation(self):
-        mesh = obj_mod.load_obj(os.path.join(REF_ASSETS, "cube.obj"))
+        mesh = obj_mod.load_obj(os.path.join(OUR_ASSETS, "cube.obj"))
         # 6 quad faces fan-triangulate into 12 tris.
         assert mesh.num_tris == 12
         # cube has 8 positions but per-corner normals/uvs split them; dedup
@@ -28,18 +28,18 @@ class TestObj:
         )
 
     def test_bunny_no_uv(self):
-        mesh = obj_mod.load_obj(os.path.join(REF_ASSETS, "bunny.obj"))
+        mesh = obj_mod.load_obj(os.path.join(OUR_ASSETS, "bunny.obj"))
         assert mesh.num_tris == 4968  # grep -c "^f " bunny.obj
         assert np.all(mesh.uvs == 0.0)  # bunny has no vt records
         assert np.linalg.norm(mesh.normals, axis=-1).min() > 0.9
 
     def test_dedup_reuses_vertices(self):
-        mesh = obj_mod.load_obj(os.path.join(REF_ASSETS, "teapot.obj"))
+        mesh = obj_mod.load_obj(os.path.join(OUR_ASSETS, "teapot.obj"))
         # Far fewer unique vertices than 3*ntris if dedup works.
         assert mesh.positions.shape[0] < mesh.num_tris * 3 * 0.6
 
     def test_triangle_arrays(self):
-        mesh = obj_mod.load_obj(os.path.join(REF_ASSETS, "cube.obj"))
+        mesh = obj_mod.load_obj(os.path.join(OUR_ASSETS, "cube.obj"))
         v, n, uv = mesh.triangles()
         assert v.shape == (12, 3, 3)
         assert n.shape == (12, 3, 3)
@@ -48,7 +48,7 @@ class TestObj:
 
 class TestSceneXml:
     def test_parse_reference_inside_scene(self):
-        spec = sx.load_scene_xml(os.path.join(REF_ASSETS, "scenes", "inside_scene.xml"))
+        spec = sx.load_scene_xml(upstream_asset("scenes/inside_scene.xml"))
         assert spec.name == "tower scene"
         np.testing.assert_allclose(spec.light_pos, [0.0, 1.0, 2.0])
         assert len(spec.objects) == 9
@@ -65,43 +65,44 @@ class TestSceneXml:
         assert spec.materials[2].refractivity == 0.9
 
     def test_resolve_reference_asset(self):
-        xml_dir = os.path.join(REF_ASSETS, "scenes")
+        wok = upstream_asset("wok.obj")
+        xml_dir = os.path.join(os.path.dirname(wok), "scenes")
         p = sx.resolve_asset("../assets/wok.obj", xml_dir)
-        assert p == os.path.join(REF_ASSETS, "wok.obj")
+        assert p == wok
 
     def test_resolve_substitute_for_missing_hdr(self):
-        xml_dir = os.path.join(REF_ASSETS, "scenes")
+        xml_dir = os.path.join(OUR_ASSETS, "scenes")
         p = sx.resolve_asset("../assets/industrial_sunset_puresky_4k.hdr", xml_dir)
         assert p.endswith("industrial_sunset_puresky_4k.png")
         assert os.path.isfile(p)
 
     def test_resolve_substitute_log_fence(self):
-        xml_dir = os.path.join(REF_ASSETS, "scenes")
+        xml_dir = os.path.join(OUR_ASSETS, "scenes")
         p = sx.resolve_asset("../assets/textures/log_fence.png", xml_dir)
         assert os.path.isfile(p)
 
     def test_missing_asset_raises(self):
         with pytest.raises(FileNotFoundError):
-            sx.resolve_asset("../assets/nope_does_not_exist.obj", REF_ASSETS)
+            sx.resolve_asset("../assets/nope_does_not_exist.obj", OUR_ASSETS)
 
 
 class TestImages:
     def test_load_png(self):
         img = image_mod.load_texture_image(
-            os.path.join(REF_ASSETS, "textures", "Stylized_Pavement_basecolor.png")
+            os.path.join(OUR_ASSETS, "textures", "log_fence.png")
         )
         assert img.ndim == 3 and img.shape[2] == 3
         assert img.dtype == np.float32
         assert 0.0 <= img.min() and img.max() <= 1.0
 
-    def test_load_jpg_and_tga(self):
-        jpg = image_mod.load_texture_image(
-            os.path.join(REF_ASSETS, "textures", "Wood_Tower_Col.jpg")
-        )
-        tga = image_mod.load_texture_image(
-            os.path.join(REF_ASSETS, "textures", "Stylized_Wood_basecolor.tga")
-        )
-        assert jpg.shape[2] == 3 and tga.shape[2] == 3
+    def test_load_jpg_and_tga(self, tmp_path):
+        # JPEG and TGA are not decoded (no image library on the main path):
+        # they must fail loudly, naming the file, not load as garbage
+        for name, head in (("t.jpg", b"\xff\xd8\xff\xe0"), ("t.tga", b"\x00\x00\x02")):
+            path = tmp_path / name
+            path.write_bytes(head + bytes(64))
+            with pytest.raises(ValueError, match=name):
+                image_mod.load_texture_image(str(path))
 
     def test_hdr_roundtrip(self, tmp_path):
         # Write a tiny flat (non-RLE) HDR and read it back.

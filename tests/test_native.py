@@ -11,9 +11,12 @@ from cpu_ray_tracer_tpu.accel.compile import make_triangle_pool
 from cpu_ray_tracer_tpu.accel.types import BVHArrays, to_device_f32, to_device_i32
 from cpu_ray_tracer_tpu.ops import intersect, traverse_bvh
 
-pytestmark = pytest.mark.skipif(
-    native.get_lib() is None, reason="native library unavailable"
-)
+
+@pytest.fixture(autouse=True)
+def native_lib():
+    """Decided per test, not at import: building the library runs make."""
+    if native.get_lib() is None:
+        pytest.skip("native library unavailable")
 
 
 def random_tris(rng, n):

@@ -11,7 +11,7 @@ from cpu_ray_tracer_tpu.core import camera as cam_mod
 from cpu_ray_tracer_tpu.render import basics, pathtracer, whitted
 from cpu_ray_tracer_tpu.scene.build import compile_scene
 
-from tests.conftest import OUR_ASSETS
+from tests.conftest import OUR_ASSETS, upstream_asset
 from tests.oracle import WhittedOracle
 
 CUBE_XML = os.path.join(OUR_ASSETS, "scenes", "cube_scene.xml")
@@ -100,8 +100,7 @@ class TestSceneInfo:
         assert info.build_time_us > 0
 
     def test_inside_scene_compiles(self):
-        xml = os.path.join("/root/reference/assets/scenes", "inside_scene.xml")
-        scene, info = compile_scene(xml, layout="tlas")
+        scene, info = compile_scene(upstream_asset("scenes/inside_scene.xml"), layout="tlas")
         assert info.object_count == 9
         # wok (3536 tris after quad fan-triangulation) + watch-tower (2036)
         # + 7 log_fence instances (836 each)
@@ -116,11 +115,9 @@ class TestUpstreamGoldens:
     tools/gen_goldens.py (oracle Whitted + fixed-seed PT pass on CPU)."""
 
     GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
-    INSIDE_XML = "/root/reference/assets/scenes/inside_scene.xml"
-
     @pytest.fixture(scope="class")
     def inside_scene(self):
-        return compile_scene(self.INSIDE_XML, layout="tlas")
+        return compile_scene(upstream_asset("scenes/inside_scene.xml"), layout="tlas")
 
     def test_whitted_matches_oracle_golden_160x100(self, inside_scene):
         scene, info = inside_scene
@@ -214,23 +211,6 @@ class TestAccelInterchange:
             imgs[accel] = np.asarray(whitted.render(scene, small_cam)["image"])
         np.testing.assert_allclose(imgs["grid"], imgs["bvh"], atol=2e-3, rtol=1e-3)
         np.testing.assert_allclose(imgs["kdtree"], imgs["bvh"], atol=2e-3, rtol=1e-3)
-
-    @pytest.mark.parametrize("accel", ["grid", "kdtree"])
-    @pytest.mark.parametrize("layout", ["mono", "tlas"])
-    def test_packet_kernel_matches_xla_path(self, small_cam, accel, layout):
-        """Grid/KD compiled into the packet kernel's threaded format
-        (accel/cell_tree.py) must render the same image as the
-        reference-semantics XLA DDA / short-stack paths."""
-        xla_scene, _ = compile_scene(
-            BENCH_XML, layout=layout, accel=accel, use_pallas=False
-        )
-        pk_scene, _ = compile_scene(
-            BENCH_XML, layout=layout, accel=accel, use_pallas=True
-        )
-        assert pk_scene.use_pallas and pk_scene.packed is not None
-        a = np.asarray(whitted.render(xla_scene, small_cam)["image"])
-        b = np.asarray(whitted.render(pk_scene, small_cam)["image"])
-        np.testing.assert_allclose(a, b, atol=2e-3, rtol=1e-3)
 
     def test_tlas_grid_and_kdtree_match_bvh(self, small_cam):
         """TLASGrid / TLASKDTree equivalents (per-instance BLAS structures

@@ -16,23 +16,33 @@ from cpu_ray_tracer_tpu.core import camera as cam_mod
 from cpu_ray_tracer_tpu.render import whitted
 from cpu_ray_tracer_tpu.scene.build import compile_scene
 
-REF_SCENES = "/root/reference/assets/scenes"
-SHIPPED = [
+from tests.conftest import OUR_ASSETS, upstream_asset
+
+SCENES = [
     "base_scene.xml",
     "different_size_scene.xml",
     "inside_scene.xml",
     "uniform_distributed_scene.xml",
+    "bunny_teapot.xml",
 ]
+BENCH_XML = os.path.join(OUR_ASSETS, "scenes", "bunny_teapot.xml")
 
 
-@pytest.mark.parametrize("xml", SHIPPED)
+def scene_path(xml):
+    """The repo's own scene, or the upstream one (skips when absent)."""
+    ours = os.path.join(OUR_ASSETS, "scenes", xml)
+    return ours if os.path.isfile(ours) else upstream_asset(f"scenes/{xml}")
+
+
+@pytest.mark.parametrize("xml", SCENES)
 def test_default_cap_renders_drop_free(xml):
-    """All four upstream scenes at the DEFAULT cap_factor: dropped == 0.
+    """The four upstream scenes and the bench scene at the DEFAULT
+    cap_factor: dropped == 0.
 
     384x240 keeps the level caps above the 8192 floor for the first two
     levels, so the cap FRACTION under test matches full resolution (both
     the child count and the capacity scale with the pixel count)."""
-    scene, _ = compile_scene(os.path.join(REF_SCENES, xml), layout="tlas")
+    scene, _ = compile_scene(scene_path(xml), layout="tlas")
     cam = cam_mod.make_camera(384, 240)
     out = whitted.render_jit(scene, cam)
     assert int(out["dropped"]) == 0, (
@@ -45,14 +55,12 @@ def test_dropped_is_reported_and_adaptive_recovers():
     """A deliberately starved cap must (a) report a nonzero dropped count
     from the fixed path and (b) be healed by render_adaptive's grow loop
     (dropped == 0 at the returned cap_factor)."""
-    scene, _ = compile_scene(
-        os.path.join(REF_SCENES, "different_size_scene.xml"), layout="tlas"
-    )
+    scene, _ = compile_scene(BENCH_XML, layout="tlas")
     cam = cam_mod.make_camera(128, 80)
-    # different_size_scene's material 0 has reflectivity 1.0: primary hits
-    # on it emit mirror children.  A cap this small cannot hold them.
-    starved = whitted.render_jit(scene, cam, cap_factor=0.001)
+    # the bench scene's mirror (0.9) and glass (0.9) teapots emit children
+    # on primary hits.  A cap this small cannot hold them.
+    starved = whitted.render_jit(scene, cam, cap_factor=0.01)
     assert int(starved["dropped"]) > 0
-    healed = whitted.render_adaptive(scene, cam, cap_factor=0.001)
+    healed = whitted.render_adaptive(scene, cam, cap_factor=0.01)
     assert int(healed["dropped"]) == 0
-    assert healed["cap_factor"] > 0.001
+    assert healed["cap_factor"] > 0.01
